@@ -1,0 +1,457 @@
+"""Port kernel layer (``repro_torch.core.kernels_xp`` / ``kernels_cuda``)
+held against the JAX package on the same NumPy-seeded inputs.
+
+Pinned tolerances:
+  * the plain version at float64 == the JAX package's NumPy backend to
+    1e-9 (rtol and atol): the same math at the same precision;
+  * the plain version at float32, and the ``cuda`` backend's stacking on
+    CPU tensors (which runs the plain version), == the Pallas kernels (in
+    interpret mode on the CPU, as the JAX package's own tests run them) to
+    5e-4, the f32 pin of ``tests/test_backends.py``;
+  * the plain sweep statistics (kernel K4's plain version) == NumPy
+    mean/min/argmin of the NumPy backend's aggregate: means and minima to
+    1e-9, argmin indices exactly (first occurrence on ties).
+
+Kernel launches need a CUDA card: those tests carry the ``cuda`` marker
+and skip here with the reason.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import repro.core as R
+from repro.core import kernels_xp as RK
+from repro.core import sweep as RS
+
+import repro_torch.core as P
+from repro_torch import carry
+from repro_torch.core import kernels_cuda as KC
+from repro_torch.core import kernels_xp as PK
+
+F64_TOL = 1e-9
+F32_TOL = 5e-4
+PROFILE_FIELDS = carry.PROFILE_FIELDS
+
+
+# --------------------------------------------------------------------------- #
+# Shared inputs (NumPy-seeded), imported by the other port test modules
+# --------------------------------------------------------------------------- #
+
+
+def profile_dicts(n, seed):
+    """``n`` WorkloadProfile field dicts spanning the bottleneck space."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        coll = {"all-reduce": float(10 ** rng.uniform(6, 12)),
+                "all-gather": float(10 ** rng.uniform(5, 11))}
+        d = dict(name=f"app{i}",
+                 flops=float(10 ** rng.uniform(9, 15)),
+                 hbm_bytes=float(10 ** rng.uniform(6, 12)),
+                 bytes_accessed=float(10 ** rng.uniform(6, 12)),
+                 collective_bytes=coll,
+                 num_devices=int(rng.choice([1, 8, 256])),
+                 model_flops=(float(10 ** rng.uniform(12, 18))
+                              if rng.random() < 0.8 else 0.0))
+        if i % 3 == 0:
+            d["pod_collective_bytes"] = 0.3 * sum(coll.values())
+        if i % 5 == 0:
+            d["hbm_bytes"] = 0.0  # the bytes_accessed fallback
+        out.append(d)
+    return out
+
+
+def both_profiles(dicts):
+    """(reference profiles, port profiles) from the same field dicts."""
+    ref = [R.WorkloadProfile(**{**d, "collective_bytes": dict(d["collective_bytes"])})
+           for d in dicts]
+    port = [P.WorkloadProfile(**{**d, "collective_bytes": dict(d["collective_bytes"])})
+            for d in dicts]
+    return ref, port
+
+
+def both_machines(n, seed):
+    """(reference, port) MachineBatch: the named trio + ``n`` Halton rows."""
+    ref = RS.MachineBatch.concat(RS.MachineBatch.from_models(R.VARIANTS),
+                                 RS.ParamSpace.default().sample(n, seed=seed))
+    port = P.MachineBatch.concat(P.MachineBatch.from_models(P.VARIANTS),
+                                 P.ParamSpace.default().sample(n, seed=seed))
+    return ref, port
+
+
+def port_batches(ref_pb, ref_mb):
+    """Carry the reference's packed batches across as NumPy."""
+    pb = carry.profiles_from_numpy(
+        ref_pb.names, {f: getattr(ref_pb, f) for f in PROFILE_FIELDS})
+    mb = carry.machines_from_numpy(
+        ref_mb.names, {f: getattr(ref_mb, f) for f in RS.SWEEP_PARAMS})
+    return pb, mb
+
+
+def torch32():
+    return PK.TorchBackend("cpu", torch.float32)
+
+
+def cuda_on_cpu():
+    return P.get_backend("cuda", device="cpu")
+
+
+def assert_result_close(port, ref, tol):
+    np.testing.assert_allclose(port.beta, ref.beta, rtol=tol, atol=tol)
+    np.testing.assert_allclose(port.gamma, ref.gamma, rtol=tol, atol=tol)
+    for k in ref.alphas:
+        np.testing.assert_allclose(port.alphas[k], ref.alphas[k],
+                                   rtol=tol, atol=tol)
+    for k in ref.scores:
+        np.testing.assert_allclose(port.scores[k], ref.scores[k],
+                                   rtol=tol, atol=tol)
+    np.testing.assert_allclose(port.aggregate, ref.aggregate,
+                               rtol=tol, atol=tol)
+
+
+# --------------------------------------------------------------------------- #
+# Registry and devices
+# --------------------------------------------------------------------------- #
+
+
+def test_registry_names_and_resolution():
+    assert P.available_backends() == ("cuda", "torch")
+    be = P.get_backend(device="cpu")
+    assert isinstance(be, PK.TorchBackend) and be.dtype == torch.float64
+    assert be is P.get_backend("torch", device="cpu")
+    assert P.get_backend("cuda", device="cpu").name == "cuda"
+    assert P.get_backend(be) is be
+    with pytest.raises(ValueError, match="unknown backend"):
+        P.get_backend("numpy", device="cpu")
+    with pytest.raises(ValueError, match="unknown backend"):
+        PK.validate_backend_name("pallas")
+
+
+def test_default_device_is_cuda_and_never_falls_back():
+    """Without ``device=`` the entry points ask for the card; on a host
+    without one they raise instead of running on the CPU."""
+    dicts = profile_dicts(2, seed=1)
+    _, prof = both_profiles(dicts)
+    if torch.cuda.is_available():
+        assert P.get_backend().name == "cuda"
+        return
+    for call in (lambda: P.get_backend(),
+                 lambda: P.run_sweep(prof, n=8),
+                 lambda: P.evaluate(prof),
+                 lambda: P.evaluate(prof, method="scalar"),
+                 lambda: P.shard_sweep(prof, n=8),
+                 lambda: P.batched_step_time(prof, P.VARIANTS),
+                 lambda: P.TorchBackend()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+# --------------------------------------------------------------------------- #
+# Plain float64 == the JAX package's NumPy backend (1e-9)
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("timing_model", ["serial", "overlap"])
+@pytest.mark.parametrize("clamp", [False, True])
+def test_plain_f64_congruence_matches_numpy(timing_model, clamp):
+    ref_p, port_p = both_profiles(profile_dicts(6, seed=3))
+    ref_m, port_m = both_machines(24, seed=1)
+    ref = RS.batched_congruence(ref_p, ref_m, timing_model=timing_model,
+                                clamp=clamp, backend="numpy")
+    port = P.batched_congruence(port_p, port_m, timing_model=timing_model,
+                                clamp=clamp, device="cpu")
+    assert port.backend == "torch"
+    assert port.aggregate.dtype == np.float64
+    assert_result_close(port, ref, F64_TOL)
+    assert port.pareto_front() == ref.pareto_front()
+    assert port.pareto_front_3d() == ref.pareto_front_3d()
+    assert list(port.best_fit_indices()) == list(ref.best_fit_indices())
+
+
+@pytest.mark.parametrize("timing_model", ["serial", "overlap"])
+def test_plain_f64_step_time_and_beta_match_numpy(timing_model):
+    ref_p, port_p = both_profiles(profile_dicts(5, seed=7))
+    ref_m, port_m = both_machines(16, seed=2)
+    np.testing.assert_allclose(
+        P.batched_step_time(port_p, port_m, timing_model, device="cpu"),
+        RS.batched_step_time(ref_p, ref_m, timing_model, backend="numpy"),
+        rtol=F64_TOL, atol=0)
+    for ref_col in (0, 5):
+        np.testing.assert_allclose(
+            P.default_beta_batched(port_p, port_m, beta_ref=ref_col,
+                                   device="cpu"),
+            RS.default_beta_batched(ref_p, ref_m, beta_ref=ref_col,
+                                    backend="numpy"),
+            rtol=F64_TOL, atol=0)
+
+
+def _degenerate_dicts():
+    def prof(name, flops, hbm, coll, nd=8, model_flops=None):
+        return dict(name=name, flops=flops, hbm_bytes=hbm, bytes_accessed=hbm,
+                    collective_bytes={"all-reduce": coll}, num_devices=nd,
+                    model_flops=0.5 * flops * nd if model_flops is None
+                    else model_flops)
+    return [prof("zero-flop", 0.0, 1e9, 1e8, model_flops=0.0),
+            prof("zero-coll", 1e12, 1e9, 0.0),
+            prof("tiny", 1.0, 1.0, 0.0, model_flops=0.5),
+            prof("hbm-bound", 1e9, 1e12, 1e10),
+            prof("idle", 0.0, 0.0, 0.0)]
+
+
+def _degenerate_machines(pkg):
+    base = pkg.TPU_V5E
+    return pkg.MachineBatch.from_models([
+        base,
+        dataclasses.replace(base, peak_flops=base.peak_flops * 1e-6),
+        dataclasses.replace(base, hbm_bw=base.hbm_bw * 1e6),
+        dataclasses.replace(base, ici_bw=base.ici_bw * 1e-6,
+                            inter_pod_bw=base.inter_pod_bw * 1e-6),
+    ])
+
+
+@pytest.mark.parametrize("beta", [None, 1e-6, 1e3, 0.0])
+def test_plain_f64_degenerate_cells_match_numpy(beta):
+    """Zero-FLOP, zero-collective, idle (gamma == beta == 0) apps, rates
+    scaled 1e-6..1e6 and extreme betas: finite, equal to NumPy."""
+    ref_p, port_p = both_profiles(_degenerate_dicts())
+    for clamp in (False, True):
+        ref = RS.batched_congruence(ref_p, _degenerate_machines(R), beta=beta,
+                                    clamp=clamp, backend="numpy")
+        port = P.batched_congruence(port_p, _degenerate_machines(P), beta=beta,
+                                    clamp=clamp, device="cpu")
+        assert_result_close(port, ref, F64_TOL)
+        if clamp:
+            assert np.isfinite(port.aggregate).all()
+
+
+def test_scalar_path_matches_reference():
+    """The host-side scalar adapters are the same math, bit for bit."""
+    for d in profile_dicts(4, seed=11) + _degenerate_dicts():
+        (rp,), (pp,) = both_profiles([d])
+        for rm, pm in zip(R.VARIANTS, P.VARIANTS):
+            for tm in ("serial", "overlap"):
+                r = R.profile_congruence(rp, rm, timing_model=tm, clamp=True)
+                p = P.profile_congruence(pp, pm, timing_model=tm, clamp=True)
+                assert p.as_dict() == r.as_dict()
+            assert P.default_beta(pp, pm) == R.default_beta(rp, rm)
+            assert (P.subsystem_times(pp, pm).as_dict()
+                    == R.subsystem_times(rp, rm).as_dict())
+
+
+# --------------------------------------------------------------------------- #
+# Plain float32 and the cuda backend's stacking == the Pallas kernels (5e-4)
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("make", [torch32, cuda_on_cpu],
+                         ids=["torch-f32", "cuda-backend-on-cpu"])
+@pytest.mark.parametrize("timing_model", ["serial", "overlap"])
+@pytest.mark.parametrize("clamp", [False, True])
+def test_f32_congruence_matches_pallas(make, timing_model, clamp):
+    ref_p, port_p = both_profiles(profile_dicts(6, seed=3))
+    ref_m, port_m = both_machines(24, seed=1)
+    ref = RS.batched_congruence(ref_p, ref_m, timing_model=timing_model,
+                                clamp=clamp, backend="pallas")
+    port = P.batched_congruence(port_p, port_m, timing_model=timing_model,
+                                clamp=clamp, backend=make())
+    assert port.aggregate.dtype == np.float32
+    assert port.aggregate.shape == ref.aggregate.shape
+    assert_result_close(port, ref, F32_TOL)
+
+
+@pytest.mark.parametrize("v", [1, 5, 127, 128, 129, 513])
+def test_f32_variant_edges_match_pallas(v):
+    """The Pallas backend pads the variant axis to a tile multiple; the
+    port masks the ragged edge instead.  Both return exactly (A, V)."""
+    ref_p, port_p = both_profiles(profile_dicts(2, seed=13))
+    ref_m = RS.ParamSpace.default().sample(v, seed=2)
+    port_m = P.ParamSpace.default().sample(v, seed=2)
+    ref = RS.batched_congruence(ref_p, ref_m, backend="pallas")
+    for be in (torch32(), cuda_on_cpu()):
+        port = P.batched_congruence(port_p, port_m, backend=be)
+        assert port.aggregate.shape == ref.aggregate.shape == (2, v)
+        assert_result_close(port, ref, F32_TOL)
+        assert np.isfinite(port.aggregate).all()
+
+
+@pytest.mark.parametrize("timing_model", ["serial", "overlap"])
+def test_f32_step_time_and_beta_match_pallas(timing_model):
+    ref_p, port_p = both_profiles(profile_dicts(5, seed=7))
+    ref_m, port_m = both_machines(126, seed=2)
+    ref_t = RS.batched_step_time(ref_p, ref_m, timing_model, backend="pallas")
+    ref_b = RS.default_beta_batched(ref_p, ref_m, backend="pallas")
+    for be in (torch32(), cuda_on_cpu()):
+        np.testing.assert_allclose(
+            P.batched_step_time(port_p, port_m, timing_model, backend=be),
+            ref_t, rtol=F32_TOL)
+        np.testing.assert_allclose(
+            P.default_beta_batched(port_p, port_m, backend=be), ref_b,
+            rtol=F32_TOL)
+
+
+def test_f32_degenerate_cells_match_pallas():
+    ref_p, port_p = both_profiles(_degenerate_dicts())
+    for beta in (None, 1e-6, 1e3):
+        ref = RS.batched_congruence(ref_p, _degenerate_machines(R), beta=beta,
+                                    clamp=True, backend="pallas")
+        port = P.batched_congruence(port_p, _degenerate_machines(P),
+                                    beta=beta, clamp=True,
+                                    backend=cuda_on_cpu())
+        np.testing.assert_allclose(port.aggregate, ref.aggregate,
+                                   rtol=F32_TOL, atol=F32_TOL)
+
+
+# --------------------------------------------------------------------------- #
+# Sweep statistics (K4's plain version) == NumPy mean/min/argmin
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+def test_plain_sweep_stats_match_numpy_reduction(clamp):
+    """The reference's K4 cannot run on the installed jax (its shard_map
+    call passes a keyword jax no longer takes), so its oracle is what it
+    computes: NumPy mean/min/argmin of the NumPy backend's aggregate.
+    Clamped scores make exact ties common; argmin must pick the first."""
+    ref_p, port_p = both_profiles(profile_dicts(6, seed=17)
+                                  + _degenerate_dicts())
+    ref_m, port_m = both_machines(200, seed=4)
+    ref_pb = RS.ProfileBatch.from_profiles(ref_p)
+    beta = RS.default_beta_batched(ref_pb, ref_m, backend="numpy")
+    agg = RK.get_backend("numpy").congruence(
+        ref_pb.arrays(), ref_m.arrays(), beta, clamp=clamp).aggregate
+    port_pb = P.ProfileBatch.from_profiles(port_p)
+    mean, mins, idx = P.get_backend(device="cpu").sharded_stats(
+        port_pb.arrays(), port_m.arrays(), beta, clamp=clamp)
+    np.testing.assert_allclose(mean, agg.mean(axis=0), rtol=F64_TOL, atol=0)
+    np.testing.assert_allclose(mins, agg.min(axis=1), rtol=F64_TOL, atol=0)
+    np.testing.assert_array_equal(idx, np.argmin(agg, axis=1))
+    if clamp:  # the idle app scores 0 everywhere: a full row of ties
+        assert (agg[-1] == agg[-1][0]).all() and idx[-1] == 0
+    assert mean.dtype == mins.dtype == np.float64 and idx.dtype == np.int64
+
+
+def test_cuda_backend_stats_on_cpu_match_its_own_aggregate():
+    """The cuda backend's K4 path on CPU tensors reduces exactly the
+    float32 aggregate its K1 path returns."""
+    _, port_p = both_profiles(profile_dicts(5, seed=23))
+    _, port_m = both_machines(300, seed=5)
+    pb = P.ProfileBatch.from_profiles(port_p)
+    be = cuda_on_cpu()
+    beta = be.default_beta(pb.arrays(), port_m.select(0).arrays())
+    for tm in ("serial", "overlap"):
+        agg = be.congruence(pb.arrays(), port_m.arrays(), beta,
+                            timing_model=tm, clamp=True).aggregate
+        mean, mins, idx = be.sharded_stats(pb.arrays(), port_m.arrays(), beta,
+                                           timing_model=tm, clamp=True)
+        np.testing.assert_allclose(mean, agg.mean(axis=0), rtol=1e-6)
+        np.testing.assert_array_equal(mins, agg.min(axis=1))
+        np.testing.assert_array_equal(idx, np.argmin(agg, axis=1))
+
+
+def test_sweep_stats_plain_follows_numpy_nan_and_tie_rules():
+    rows = np.array([[3.0, 1.0, 1.0, 2.0],
+                     [2.0, np.nan, 0.5, np.nan],
+                     [np.inf, np.inf, np.inf, np.inf],
+                     [-1.0, -np.inf, np.nan, -np.inf],
+                     [0.0, 0.0, 0.0, 0.0]])
+    mean, mins, idx = PK.sweep_stats_plain(torch.as_tensor(rows))
+    np.testing.assert_array_equal(idx.numpy(), np.argmin(rows, axis=1))
+    np.testing.assert_array_equal(mins.numpy(), np.min(rows, axis=1))
+    np.testing.assert_array_equal(mean.numpy(), rows.mean(axis=0))
+
+
+# --------------------------------------------------------------------------- #
+# Wrapper contract on the CPU
+# --------------------------------------------------------------------------- #
+
+
+def test_wrappers_take_the_plain_version_on_cpu_and_count_nothing():
+    _, port_p = both_profiles(profile_dicts(3, seed=2))
+    _, port_m = both_machines(10, seed=3)
+    pb = P.ProfileBatch.from_profiles(port_p)
+    p = torch.as_tensor(np.stack(list(pb.arrays()) + [np.full(3, 1e-3)]))
+    m = torch.as_tensor(np.stack(list(port_m.arrays())))
+    KC.reset_launch_counts()
+    out = KC.congruence(p, m, clamp=True)
+    assert out.shape == (8, 3, 13) and out.dtype == torch.float64
+    assert KC.step_time(p[:6], m).shape == (3, 13)
+    assert KC.default_beta(p[:6], m).shape == (3,)
+    mean, mins, idx = KC.sweep_stats(p, m, clamp=True)
+    assert mean.shape == (13,) and mins.shape == idx.shape == (3,)
+    torch.testing.assert_close(mins, out[7].min(dim=1).values)
+    assert KC.launch_counts() == {"congruence": 0, "step_time": 0,
+                                  "default_beta": 0, "sweep_stats": 0}
+
+
+def test_wrappers_reject_bad_stacks():
+    p = torch.ones(7, 3)
+    m = torch.ones(8, 5)
+    with pytest.raises(ValueError, match="machine stack"):
+        KC.congruence(p, torch.ones(7, 5))
+    with pytest.raises(ValueError, match="profile stack"):
+        KC.congruence(torch.ones(6, 3), m)
+    with pytest.raises(ValueError, match="timing model"):
+        KC.step_time(p, m, "bogus")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        KC.congruence(p.to("meta"), m.to("meta"))
+
+
+# --------------------------------------------------------------------------- #
+# Kernel launches (need the card)
+# --------------------------------------------------------------------------- #
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels are compiled with nvcc "
+                    "for sm_90a and have no CPU mode")
+    return torch.device("cuda")
+
+
+def _kernel_inputs(a, v, seed, dev):
+    _, port_p = both_profiles(profile_dicts(a, seed=seed))
+    mb = P.ParamSpace.scale_space().sample(v, seed=seed)
+    pb = P.ProfileBatch.from_profiles(port_p)
+    beta = np.full(a, 1e-4)
+    p = torch.as_tensor(np.stack(list(pb.arrays()) + [beta]),
+                        dtype=torch.float32, device=dev)
+    m = torch.as_tensor(np.stack(list(mb.arrays())), dtype=torch.float32,
+                        device=dev)
+    return p, m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v", [1, 127, 129, 4099])
+def test_kernels_match_plain_on_card(cuda_device, v):
+    p, m = _kernel_inputs(5, v, seed=v, dev=cuda_device)
+    KC.reset_launch_counts()
+    for tm in ("serial", "overlap"):
+        for clamp in (False, True):
+            torch.testing.assert_close(
+                KC.congruence(p, m, tm, clamp=clamp),
+                KC.plain_congruence(p.double(), m.double(), tm, clamp=clamp).float(),
+                rtol=F32_TOL, atol=F32_TOL)
+            mean, mins, idx = KC.sweep_stats(p, m, tm, clamp)
+            pmean, pmins, pidx = KC.plain_sweep_stats(p, m, tm, clamp)
+            torch.testing.assert_close(mean, pmean, rtol=1e-5, atol=1e-7)
+            torch.testing.assert_close(mins, pmins, rtol=F32_TOL, atol=F32_TOL)
+        torch.testing.assert_close(
+            KC.step_time(p[:6].contiguous(), m, tm),
+            KC.plain_step_time(p, m, tm), rtol=F32_TOL, atol=0.0)
+    torch.testing.assert_close(KC.default_beta(p[:6].contiguous(), m),
+                               KC.plain_default_beta(p, m),
+                               rtol=F32_TOL, atol=0.0)
+    torch.cuda.synchronize()
+    assert KC.launch_counts() == {"congruence": 4, "step_time": 2,
+                                  "default_beta": 1, "sweep_stats": 4}
+
+
+@pytest.mark.cuda
+def test_kernels_reject_float64_on_card(cuda_device):
+    p, m = _kernel_inputs(2, 8, seed=1, dev=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        KC.congruence(p.double(), m.double())

@@ -1,0 +1,91 @@
+"""The port stands alone: it imports nothing of JAX or of the JAX package,
+its docstring examples run, its kernels build only where nvcc is, and
+``chip_smoke.py`` refuses to report a result without a card or outside a
+checkout."""
+
+import ast
+import doctest
+import importlib
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "src", "repro_torch")
+PORT_FILES = sorted(
+    os.path.relpath(os.path.join(d, f), ROOT)
+    for d, _, files in os.walk(PORT) for f in files if f.endswith(".py"))
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    return env
+
+
+def test_import_leaves_jax_and_the_jax_package_out():
+    code = ("import sys, repro_torch, repro_torch.launch.sweep, "
+            "repro_torch.core.kernels_cuda, repro_torch.core._build\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'benchmarks')]\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES + ["chip_smoke.py"])
+def test_no_import_of_jax_or_the_jax_package(path):
+    tree = ast.parse(open(os.path.join(ROOT, path)).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods = [node.module or ""]
+        else:
+            continue
+        for mod in mods:
+            assert mod.split(".")[0] not in ("jax", "jaxlib", "repro",
+                                             "benchmarks"), (path, mod)
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.core.sweep", "repro_torch.core.costmodel",
+    "repro_torch.core.genload", "repro_torch.core.dse"])
+def test_docstring_examples_run(module):
+    result = doctest.testmod(importlib.import_module(module))
+    assert result.attempted > 0 and result.failed == 0
+
+
+def test_kernel_build_is_keyed_on_the_source_and_needs_nvcc():
+    from repro_torch.core import _build
+
+    path = _build.library_path()
+    assert path.parent == _build.BUILD_DIR
+    assert path.name.startswith("libcongruence_") and path.suffix == ".so"
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("nvcc is present: the missing-compiler error is not "
+                    "reachable here")
+    if not path.exists():
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.build()
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["checkout", "alone"])
+def test_chip_smoke_prints_no_result_without_card_or_checkout(tmp_path, alone):
+    if torch.cuda.is_available() and not alone:
+        pytest.skip("a card is present: chip_smoke.py would run for real")
+    script = os.path.join(ROOT, "chip_smoke.py")
+    if alone:
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script = str(tmp_path / "chip_smoke.py")
+    out = subprocess.run([sys.executable, script], cwd=os.path.dirname(script),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
