@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's sweep path on one card and check it.
+"""Drive the PyTorch/H100 port's main paths on one card and check them.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and the exit code is not 0):
 
   1. print the card (``nvidia-smi``), build the kernels from
-     ``src/repro_torch/csrc`` with nvcc for sm_90a;
-  2. hold each kernel (K1 congruence, K2 step time, K3 default beta, K4 sweep
-     statistics) against its plain PyTorch version on the card, at
-     A in {1, 3, 64} x V in {1, 127, 128, 129, 513, 100003}, both timing
+     ``src/repro_torch/csrc`` with nvcc for sm_90a (one nvcc per source,
+     all at once);
+  2. hold each sweep kernel (K1 congruence, K2 step time, K3 default beta,
+     K4 sweep statistics) against its plain PyTorch version on the card,
+     at A in {1, 3, 64} x V in {1, 127, 128, 129, 513, 100003}, both timing
      models, clamp on and off, with degenerate cells;
   3. main path, ``run_sweep``: gen:64 x (100000 + 3 named) variants on the
      card (plus ``batched_step_time`` and ``evaluate`` on the same suite),
@@ -19,7 +20,23 @@ Phases (any failure raises and the exit code is not 0):
      checkpoint kill/resume round trip;
   5. timings by CUDA events at the phase-3/4 shapes, beside each kernel's
      bound, and the end-to-end split;
-  6. the result line.
+  6. hold K5 (flash attention) against its plain version on the card: B in
+     {1, 2} x (H, K) in {(4, 4), (8, 2), (32, 2)} x D in {64, 128} x S = T in
+     {1, 127, 128, 129, 2048} x causal window {None, 64}, plus non-causal
+     S=127, T=300, in f32 (2e-4) and bf16 (2e-2), and at the model's
+     strided layout; then time it at the model's shape beside its plain
+     version, its bound and SDPA;
+  7. main path, the model stack: chatglm3-6b at full width and depth
+     (28 layers, weights drawn on the card, bf16 compute), ``forward`` and
+     ``loss_fn`` on 4 x 2048 seeded tokens with ``attn_impl="pallas"`` (28
+     K5 launches per forward), held against the plain attention
+     (``attn_impl="xla"``) on the same weights;
+  8. main path, serving: ``prefill`` + ``decode_step`` against the forward's
+     last-token logits in f32 compute, and ``BatchedEngine`` (4 slots) on 8
+     requests of 8 new tokens with staggered admissions, each stream
+     against the same request served alone; timings of the forward, the
+     decode step and the engine;
+  9. the kernels line, the card, and the result line.
 
 It needs one CUDA card, the CUDA toolkit's nvcc and the repository's
 ``src/`` tree; without them it exits with an error and prints no result.
@@ -39,10 +56,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-#: Published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and
-#: float32 rate outside the tensor cores.
+#: Published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth,
+#: float32 rate outside the tensor cores, dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 TOL = 5e-4           # kernels vs plain versions (the JAX package's f32 pin)
 MEAN_RTOL = 1e-5     # K4 per-variant means
@@ -60,6 +78,24 @@ REPLACES = {
     "default_beta": "src/repro/core/kernels_pallas.py:109",
     "sweep_stats": "src/repro/core/kernels_pallas.py:332",
 }
+FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention.py:30"
+FA_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # tests/test_kernels.py
+#: Phase 6's grid: the model path's shapes and its neighbours, with ragged
+#: edges around the kernel's 64-row tiles.
+FA_BATCH = (1, 2)
+FA_HEADS = ((4, 4), (8, 2), (32, 2))
+FA_HEAD_DIM = (64, 128)
+FA_SEQ = (1, 127, 128, 129, 2048)
+#: The model path: chatglm3-6b, B x S tokens in bf16 compute; the decode
+#: step is timed over a cache of DECODE_CACHE positions.
+MODEL_ARCH, MODEL_B, MODEL_S, DECODE_CACHE = "chatglm3-6b", 4, 2048, 2048
+HIDDEN_RTOL = 2e-2   # K5 vs plain attention, bf16, relative to max |hidden|
+#: ... or this many times the plain bf16 path's own distance from the f32
+#: forward, where bf16 rounding over 28 layers exceeds HIDDEN_RTOL
+BF16_NOISE_FACTOR = 1.5
+LOSS_ATOL = 1e-2
+DECODE_RTOL = 1e-4   # f32 compute, tests/test_models.py
 
 
 class Failure(Exception):
@@ -472,6 +508,305 @@ def phase_timings(torch, core, KC, dev, p3):
 
 
 # --------------------------------------------------------------------------- #
+# Phase 6: K5 (flash attention) against its plain version, and its timing
+# --------------------------------------------------------------------------- #
+
+
+def attention_work(B, H, K, S, T, D, causal, window, itemsize):
+    """(bytes, operations) one attention call needs: q, k, v read once and
+    the output written once; 4 D operations (two multiply-adds) for each
+    live (query, key) pair of this mask."""
+    import numpy as np
+
+    i = np.arange(S)
+    hi = np.minimum(T, i + 1) if causal else np.full(S, T)
+    lo = np.maximum(0, i - window + 1) if window is not None else np.zeros(S, int)
+    pairs = int(np.maximum(hi - lo, 0).sum())
+    nbytes = (2 * B * H * S * D + 2 * B * K * T * D) * itemsize
+    return nbytes, 4 * D * pairs * B * H
+
+
+def attention_bound(B, H, K, S, T, D, causal, window, dtype_name):
+    nbytes, ops = attention_work(B, H, K, S, T, D, causal, window,
+                                 2 if dtype_name == "bfloat16" else 4)
+    peak = BF16_OPS_PER_S if dtype_name == "bfloat16" else F32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _fa_check(torch, FA, q, k, v, causal, window, what):
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    want = FA.plain_flash_attention(q, k, v, causal=causal, window=window)
+    tol = FA_TOL[str(q.dtype).split(".")[-1]]
+    err = (got.float() - want.float()).abs()
+    lim = tol + tol * want.float().abs()
+    bad = ~(err <= lim)
+    if bool(bad.any()):
+        raise Failure(f"K5 {what}: {int(bad.sum())} values off by more than "
+                      f"{tol} (max abs err {float(err.max()):.3e})")
+    check(got.shape == q.shape and got.dtype == q.dtype, f"K5 {what}: output")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def phase_flash_attention(torch, FA, dev):
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rand(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    max_err, n = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B in FA_BATCH:
+            for H, K in FA_HEADS:
+                for D in FA_HEAD_DIM:
+                    cases = [(S, S, True, w) for S in FA_SEQ
+                             for w in (None, 64)] + [(127, 300, False, None)]
+                    for S, T, causal, window in cases:
+                        q = rand(B, H, S, D, dtype=dtype)
+                        k, v = rand(B, K, T, D, dtype=dtype), rand(B, K, T, D, dtype=dtype)
+                        what = (f"{dtype} B={B} H={H} K={K} D={D} S={S} T={T} "
+                                f"causal={causal} window={window}")
+                        max_err = max(max_err, _fa_check(torch, FA, q, k, v, causal,
+                                                         window, what))
+                        n += 1
+    # the model's layout: (B, S, H, D) projections as transposed views
+    B, S, H, K, D = MODEL_B, MODEL_S, 32, 2, 128
+    q = rand(B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
+    k = rand(B, S, K, D, dtype=torch.bfloat16).transpose(1, 2)
+    v = rand(B, S, K, D, dtype=torch.bfloat16).transpose(1, 2)
+    max_err = max(max_err, _fa_check(torch, FA, q, k, v, True, None,
+                                     "model layout (strided views)"))
+    torch.cuda.synchronize()
+    log(f"phase 6: K5 matches its plain version on {n + 1} configurations "
+        f"(f32 at 2e-4, bf16 at 2e-2; max abs err {max_err:.3e})")
+
+    ms = cuda_ms(torch, lambda: FA.flash_attention(q, k, v, causal=True))
+    plain_ms = cuda_ms(torch, lambda: FA.plain_flash_attention(q, k, v, causal=True),
+                       reps=3, rounds=3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    bound_ms, bound_by = attention_bound(B, H, K, S, S, D, True, None, "bfloat16")
+    nbytes, ops = attention_work(B, H, K, S, S, D, True, None, 2)
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=library_ms, max_abs_err=max_err)
+    log(json.dumps({"timing": "flash_attention", "B": B, "H": H, "K": K, "S": S,
+                    "T": S, "D": D, "dtype": "bfloat16", "causal": True,
+                    "layout": "(B,S,H,D) strided views", "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "bytes": nbytes, "operations": ops,
+                    "tflops": ops / ms / 1e9, "library_ms": library_ms,
+                    "library": "torch.nn.functional.scaled_dot_product_attention"
+                               "(is_causal=True, enable_gqa=True)"}))
+    return row
+
+
+# --------------------------------------------------------------------------- #
+# Phases 7 and 8: the model stack and serving at chatglm3-6b width
+# --------------------------------------------------------------------------- #
+
+
+def device_split(torch, fn):
+    """One call of ``fn`` under ``torch.profiler``: the window's wall ms
+    (profiler overhead included), the device-busy ms summed over its CUDA
+    kernels (one stream, so they do not overlap) and that time by group."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, n = {}, 0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        name = evt.name.lower()
+        if "flash_attention_k" in name:
+            group = "K5"
+        elif any(k in name for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
+            group = "matmul"
+        elif "memcpy" in name or "memset" in name:
+            group = "copy"
+        else:
+            group = "other"
+        groups[group] = groups.get(group, 0.0) + evt.time_range.elapsed_us() / 1e3
+        n += 1
+    busy = sum(groups.values())
+    return dict(wall_ms=wall_ms, device_busy_ms=busy, device_events=n,
+                idle_share=(1 - busy / wall_ms) if n else None, busy_ms_by_group=groups)
+
+
+def _tokens(torch, dev, B, S, vocab, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    toks = torch.randint(0, vocab, (B, S), generator=gen, device=dev)
+    return {"tokens": toks, "labels": toks}
+
+
+def phase_model(torch, FA, T, C, dev):
+    cfg = C.get_config(MODEL_ARCH)
+    check(cfg.compute_dtype == "bfloat16" and cfg.n_layers == 28, f"config {cfg}")
+    t0 = time.perf_counter()
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 7: {cfg.name} ({n_params:.4g} parameters, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB) drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    batch = _tokens(torch, dev, MODEL_B, MODEL_S, cfg.vocab_size, seed=1)
+    k5 = cfg.replace(attn_impl="pallas")
+
+    FA.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    hidden, _ = T.forward(model, k5, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    fwd_launches = FA.flash_attention.launches
+    FA.flash_attention.launches = 0
+    loss, metrics = T.loss_fn(model, k5, batch)
+    torch.cuda.synchronize()
+    loss_launches = FA.flash_attention.launches
+    log(f"phase 7: forward {tuple(hidden.shape)} {hidden.dtype} in {first_s:.3f} s "
+        f"(first call), loss {float(loss):.5f}, accuracy "
+        f"{float(metrics['accuracy']):.5f}; K5 launches {fwd_launches} (forward), "
+        f"{loss_launches} (loss_fn)")
+    check(fwd_launches == cfg.n_layers and loss_launches == cfg.n_layers,
+          f"K5 launched {fwd_launches} / {loss_launches} times, not "
+          f"{cfg.n_layers} per forward")
+    check(hidden.shape == (MODEL_B, MODEL_S, cfg.d_model)
+          and hidden.dtype == torch.bfloat16, f"hidden {hidden.shape} {hidden.dtype}")
+    check(bool(torch.isfinite(hidden).all()) and math.isfinite(float(loss)),
+          "non-finite forward")
+
+    FA.flash_attention.launches = 0
+    h_plain, _ = T.forward(model, cfg, batch)
+    loss_plain, _ = T.loss_fn(model, cfg, batch)
+    torch.cuda.synchronize()
+    check(FA.flash_attention.launches == 0, "the plain attention launched K5")
+    l_err = abs(float(loss) - float(loss_plain))
+
+    # bf16 rounds differently on the two paths, and 28 layers carry that
+    # forward: the float32-compute forward with the plain attention is the
+    # yardstick of how far any bf16 path lies from the exact one.
+    ref32, _ = T.forward(model, cfg.replace(compute_dtype="float32"), batch)
+    FA.flash_attention.launches = 0
+    k5_32, _ = T.forward(model, cfg.replace(compute_dtype="float32",
+                                            attn_impl="pallas"), batch)
+    torch.cuda.synchronize()
+    check(FA.flash_attention.launches == cfg.n_layers, "f32 forward missed K5")
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+    # the loss over the first logits chunk alone, on each path
+    lc = cfg.logits_chunk
+    chunk = [float(T._xent(model, cfg, h[:, :lc], batch["labels"][:, :lc])[0])
+             for h in (h_plain, hidden)]
+
+    h_err, k5_f32_err = rel(hidden, h_plain), rel(k5_32, ref32)
+    noise = rel(h_plain, ref32)
+    h_limit = max(HIDDEN_RTOL, BF16_NOISE_FACTOR * noise)
+    log(f"phase 7: against the plain attention on the same weights: loss "
+        f"{float(loss_plain)!r} vs {float(loss)!r} (diff {l_err:.3e}, limit "
+        f"{LOSS_ATOL}; first {lc} positions: {chunk[0]!r} vs {chunk[1]!r}); "
+        f"mean |hidden diff| "
+        f"{float((hidden.float() - h_plain.float()).abs().mean()):.3e}; bf16 "
+        f"hidden max err {h_err:.3e} of max |hidden| (limit {h_limit:.3e}: "
+        f"{HIDDEN_RTOL}, or {BF16_NOISE_FACTOR} x the plain bf16 path's own "
+        f"distance {noise:.3e} from the f32 forward; K5 bf16 path's distance "
+        f"{rel(hidden, ref32):.3e}); f32 compute, K5 vs plain: {k5_f32_err:.3e} "
+        f"(limit {DECODE_RTOL})")
+    check(l_err <= LOSS_ATOL, f"loss differs from the plain attention by {l_err:.3e}")
+    check(k5_f32_err <= DECODE_RTOL,
+          f"f32 hidden differs from the plain attention by {k5_f32_err:.3e}")
+    check(h_err <= h_limit, f"bf16 hidden differs from the plain attention by {h_err:.3e}")
+    del hidden, h_plain, ref32, k5_32
+
+    fwd_ms = cuda_ms(torch, lambda: T.forward(model, k5, batch), reps=2, rounds=3)
+    fwd_plain_ms = cuda_ms(torch, lambda: T.forward(model, cfg, batch), reps=2, rounds=3)
+    tokens = MODEL_B * MODEL_S
+    log(json.dumps({"end_to_end": "forward", "arch": cfg.name, "B": MODEL_B,
+                    "S": MODEL_S, "compute_dtype": cfg.compute_dtype,
+                    "attn_impl": "pallas", "ms": fwd_ms,
+                    "tokens_per_s": tokens / fwd_ms * 1e3,
+                    "plain_attention_ms": fwd_plain_ms,
+                    "plain_attention_tokens_per_s": tokens / fwd_plain_ms * 1e3}))
+    log(json.dumps({"profile": "forward", "attn_impl": "pallas",
+                    **device_split(torch, lambda: T.forward(model, k5, batch))}))
+    return model, cfg, fwd_launches + loss_launches
+
+
+def phase_serving(torch, FA, T, E, model, cfg, dev):
+    from repro_torch.models import layers as L
+
+    # prefill + one decode step == the forward's last token, in f32 compute
+    cfg32 = cfg.replace(compute_dtype="float32", attn_impl="pallas")
+    B, S = 2, 64
+    batch = _tokens(torch, dev, B, S, cfg.vocab_size, seed=2)
+    hidden, _ = T.forward(model, cfg32, batch)
+    full = L.unembed_apply(model.embed, cfg32, hidden[:, -1:])
+    cache = T.init_cache(cfg32, B, S, device=dev)
+    cache, _ = T.prefill(model, cfg32, {"tokens": batch["tokens"][:, :S - 1]}, cache)
+    cache, logits = T.decode_step(model, cfg32, cache, batch["tokens"][:, S - 1:], S - 1)
+    err = float((logits - full).abs().max() / (full.abs().max() + 1e-6))
+    log(f"phase 8: prefill({S - 1}) + decode_step == forward's last logits in "
+        f"f32: {err:.3e} of max |logit| (limit {DECODE_RTOL})")
+    check(logits.shape == (B, 1, cfg.vocab_size) and err <= DECODE_RTOL,
+          f"decode differs from the forward by {err:.3e}")
+    del hidden, full, cache, logits
+
+    # the engine: 8 requests x 8 new tokens on 4 slots, staggered
+    def requests():
+        return [E.Request(rid=i, prompt=[(13 * i + j) % cfg.vocab_size for j in range(4)],
+                          max_new_tokens=8) for i in range(8)]
+
+    FA.flash_attention.launches = 0
+    eng = E.BatchedEngine(model, cfg, slots=4, max_len=64, device=dev)
+    reqs = requests()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.submit(reqs[0])
+    eng.step()
+    for r in reqs[1:]:
+        eng.submit(r)
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    engine_launches = FA.flash_attention.launches
+    new_tokens = sum(len(r.generated) for r in reqs)
+    check(all(len(r.generated) == 8 and all(0 <= t < cfg.vocab_size for t in r.generated)
+              for r in reqs), "engine streams")
+    check(engine_launches == 0, f"the engine launched K5 {engine_launches} times")
+    for want_req in requests():   # each request alone on a 4-slot engine
+        solo = E.BatchedEngine(model, cfg, slots=4, max_len=64, device=dev)
+        solo.submit(want_req)
+        solo.run_to_completion()
+        got = reqs[want_req.rid].generated
+        check(got == want_req.generated,
+              f"request {want_req.rid}: staggered {got} != alone {want_req.generated}")
+    log(f"phase 8: BatchedEngine (4 slots) served 8 requests x 8 new tokens, "
+        f"staggered, in {engine_s:.3f} s; every stream equals the request "
+        f"served alone; K5 launches 0")
+
+    cache = T.init_cache(cfg, 4, DECODE_CACHE, device=dev)
+    tok = torch.zeros((4, 1), dtype=torch.long, device=dev)
+    decode_ms = cuda_ms(
+        torch, lambda: T.decode_step(model, cfg, cache, tok, DECODE_CACHE - 1),
+        reps=5, rounds=3)
+    log(json.dumps({"end_to_end": "decode_step", "arch": cfg.name, "B": 4,
+                    "cache_len": DECODE_CACHE, "compute_dtype": cfg.compute_dtype,
+                    "ms": decode_ms}))
+    log(json.dumps({"profile": "decode_step", **device_split(
+        torch, lambda: T.decode_step(model, cfg, cache, tok, DECODE_CACHE - 1))}))
+    log(json.dumps({"end_to_end": "engine", "arch": cfg.name, "slots": 4,
+                    "requests": 8, "new_tokens": new_tokens, "seconds": engine_s,
+                    "tokens_per_s": new_tokens / engine_s}))
+
+
+# --------------------------------------------------------------------------- #
 
 
 def main() -> int:
@@ -513,6 +848,18 @@ def main() -> int:
                     "seconds": p4["seconds"],
                     "cells_per_s": p4["cells"] / p4["seconds"]}))
 
+    from repro_torch import configs as C
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import engine as E
+
+    fa = phase_flash_attention(torch, FA, dev)
+    torch.cuda.empty_cache()
+    model, cfg, fa_launches = phase_model(torch, FA, T, C, dev)
+    phase_serving(torch, FA, T, E, model, cfg, dev)
+    del model
+    torch.cuda.empty_cache()
+
     kernels = []
     for name in REPLACES:
         kernels.append(dict(
@@ -522,6 +869,12 @@ def main() -> int:
             plain_ms=rows[name]["plain_ms"], bound_ms=rows[name]["bound_ms"],
             bound_by=rows[name]["bound_by"], library_ms=None))
         check(kernels[-1]["launches"] > 0, f"{name} never launched")
+    kernels.append(dict(
+        name="flash_attention", route="cuda", source=FA_SOURCE,
+        replaces=FA_REPLACES, launches=fa_launches,
+        max_abs_err=fa["max_abs_err"], ms=fa["ms"], plain_ms=fa["plain_ms"],
+        bound_ms=fa["bound_ms"], bound_by=fa["bound_by"],
+        library_ms=fa["library_ms"]))
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

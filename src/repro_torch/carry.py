@@ -1,10 +1,14 @@
 """Carry state across from the JAX package.
 
-The system has no weights: its state is profile suites and machine
-populations.  Both packages pack them the same way -- one float64 array per
-field -- so carrying a packed suite or population across is a matter of
-handing those arrays over.  ``WorkloadProfile`` JSON written by the JAX
-package loads unchanged through ``WorkloadProfile.load``.
+The sweep path's state is profile suites and machine populations.  Both
+packages pack them the same way -- one float64 array per field -- so
+carrying a packed suite or population across is a matter of handing those
+arrays over.  ``WorkloadProfile`` JSON written by the JAX package loads
+unchanged through ``WorkloadProfile.load``.
+
+The model stack's state is its weights.  Both packages keep the same
+parameter layout, so ``model_from_jax`` builds the port's model from the
+JAX package's ``init_model`` tree (as NumPy arrays) by copying.
 """
 
 from __future__ import annotations
@@ -12,9 +16,14 @@ from __future__ import annotations
 from typing import Mapping, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.costs import WorkloadProfile
+from repro_torch.core.kernels_xp import resolve_device
 from repro_torch.core.sweep import SWEEP_PARAMS, MachineBatch, ProfileBatch
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dtype_of
+from repro_torch.models.transformer import Model
 
 PROFILE_FIELDS = ("flops", "mem_bytes", "collective_bytes",
                   "pod_collective_bytes", "model_flops", "num_devices")
@@ -50,3 +59,22 @@ def machines_from_numpy(names: Sequence[str],
     return MachineBatch(
         names=list(names),
         **{f: np.array(fields[f], dtype=np.float64) for f in SWEEP_PARAMS})
+
+
+def model_from_jax(cfg: ModelConfig, params: Mapping, device="cuda") -> Model:
+    """The port's model from the JAX package's ``init_model`` parameter tree
+    for ``cfg``, its leaves as NumPy arrays (``jax.tree.map(np.asarray,
+    params)``) with the per-layer leaves stacked along a leading ``layers``
+    axis.  Each leaf is copied to ``device`` in ``cfg.param_dtype``."""
+    dev = resolve_device(device)
+    dt = dtype_of(cfg.param_dtype)
+
+    def tensors(tree, i=None):
+        if isinstance(tree, Mapping):
+            return {k: tensors(v, i) for k, v in tree.items()}
+        a = np.array(tree if i is None else tree[i], dtype=np.float32)
+        return torch.as_tensor(a).to(device=dev, dtype=dt)
+
+    layers = [tensors(params["layers"], i) for i in range(cfg.n_layers)]
+    return Model(cfg, tensors(params["embed"]), tensors(params["final_norm"]),
+                 layers)

@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels at first use.
 
-``nvcc`` compiles ``src/repro_torch/csrc/congruence.cu`` into a shared
-library with a plain C interface, loaded with ``ctypes``.  The library is
-keyed by a hash of the source and the flags, under ``build/repro_torch/``
-at the root of the checkout, so a fresh checkout builds on its own and an
-edited source rebuilds.  Nothing here runs at import time.
+``nvcc`` compiles each source under ``src/repro_torch/csrc`` (the sweep
+kernels K1-K4 in ``congruence.cu``, flash attention K5 in
+``flash_attention.cu``) into an object, all sources at once in parallel,
+and links them into one shared library with a plain C interface, loaded
+with ``ctypes``.  The library is keyed by a hash of the sources and the
+flags, under ``build/repro_torch/`` at the root of the checkout, so a fresh
+checkout builds on its own and an edited source rebuilds.  Nothing here
+runs at import time.
 """
 
 from __future__ import annotations
@@ -20,15 +23,17 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = (CSRC / "congruence.cu",)
+SOURCES = (CSRC / "congruence.cu", CSRC / "flash_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-#: No --use_fast_math: Eq. 1 needs IEEE division and exact comparisons.
+#: No --use_fast_math: Eq. 1 needs IEEE division and exact comparisons, and
+#: the attention softmax uses expf and IEEE division.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "repro_threads_per_block": [],
@@ -36,6 +41,11 @@ _SIGNATURES = {
     "repro_step_time": [_P, _I, _P, _I, _P, _I, _P],
     "repro_default_beta": [_P, _I, _P, _P, _P],
     "repro_sweep_stats": [_P, _I, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P],
+    # q, k, v, o; B, H, K, S, T, D; (batch, head, position) strides of
+    # q, k, v, o; causal, has_window, window, scale, dtype, stream
+    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                              _I, _I, _I, _F, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -60,7 +70,20 @@ def library_path() -> Path:
     for src in SOURCES:
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libcongruence_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
+
+
+def _run(cmds):
+    """Run the commands at once; raise with the output of any that fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
 
 
 def build() -> Path:
@@ -69,18 +92,22 @@ def build() -> Path:
     if out.exists():
         build_info.update(path=str(out), seconds=0.0, cached=True, log="")
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    build_info.update(path=str(out), seconds=seconds, cached=False,
-                      log=proc.stdout + proc.stderr)
+    nvcc = _nvcc()
+    tmp_dir = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp"
+    tmp_dir.mkdir(parents=True, exist_ok=True)
+    try:
+        objs = [tmp_dir / f"{src.stem}.o" for src in SOURCES]
+        t0 = time.perf_counter()
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(SOURCES, objs)])
+        lib_tmp = tmp_dir / out.name
+        log += _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(lib_tmp),
+                      *map(str, objs)]])
+        seconds = time.perf_counter() - t0
+        os.replace(lib_tmp, out)
+    finally:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+    build_info.update(path=str(out), seconds=seconds, cached=False, log=log)
     return out
 
 

@@ -1,0 +1,110 @@
+"""K5: flash attention on a hand-written Hopper kernel.
+
+``flash_attention`` launches ``src/repro_torch/csrc/flash_attention.cu``
+(built at first use by ``repro_torch.core._build``), which replaces the JAX
+package's Pallas TPU kernel ``repro/kernels/flash_attention.py:_attn_kernel``.
+It computes what that kernel computes -- softmax attention with GQA,
+causal and sliding-window masks, (m, l, acc) kept in float32 and rows with
+no live key written as 0 -- without its block-size constraint: the kernel
+masks the ragged S, T and D edges itself.
+
+A CUDA tensor goes to the kernel (float32 or bfloat16, unit stride along D,
+head dim at most 256; anything else raises); a CPU tensor takes the plain
+version, ``plain_flash_attention`` (``repro_torch.kernels.ref``).  The
+kernel reads q, k and v through their (batch, head, position) strides, and
+the output keeps q's layout: a ``(B, S, H, D)`` tensor handed over as its
+``transpose(1, 2)`` view comes back the same way, with no copy on either
+side.  Kernel launches are counted in ``flash_attention.launches``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.ref import flash_attention_ref as plain_flash_attention
+
+MAX_HEAD_DIM = 256
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_WINDOW_LIMIT = 2 ** 30   # |window| beyond any sequence the kernel indexes
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention takes q (B, H, S, D) and k, v "
+                         f"(B, K, T, D); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, _, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if k.shape[1] == 0 or H % k.shape[1] != 0:
+        raise ValueError(f"query heads {H} are not a multiple of KV heads "
+                         f"{k.shape[1]}")
+
+
+def _on_kernel(q, k, v) -> bool:
+    """True when the call goes to the kernel, False for the plain version;
+    raises on a mix of devices or on what the kernel does not take."""
+    devices = {t.device for t in (q, k, v)}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("the flash-attention kernel takes float32 or bfloat16 "
+                         f"q, k, v of one dtype; got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("the flash-attention kernel needs a unit stride "
+                         "along the head dim")
+    if q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {q.shape[-1]} exceeds the kernel's "
+                         f"{MAX_HEAD_DIM}")
+    if max(q.shape[0], q.shape[1]) > 65535 or max(q.shape[2], k.shape[2]) >= 2 ** 31:
+        raise ValueError(f"shape {tuple(q.shape)} x {tuple(k.shape)} exceeds "
+                         "the kernel's grid")
+    return True
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Attention of q ``(B, H, S, D)`` over k, v ``(B, K, T, D)``; query
+    head ``h`` reads KV head ``h // (H // K)``.  Key ``j`` is live for
+    query ``i`` when ``j <= i`` (``causal``) and ``i - j < window`` (when
+    ``window`` is set).  ``scale`` defaults to ``1 / sqrt(D)``."""
+    _check(q, k, v)
+    if not _on_kernel(q, k, v):
+        return plain_flash_attention(q, k, v, causal=causal, window=window,
+                                     scale=scale)
+    B, H, S, D = q.shape
+    K, T = k.shape[1], k.shape[2]
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    has_window = window is not None
+    w = max(-_WINDOW_LIMIT, min(_WINDOW_LIMIT, int(window))) if has_window else 0
+    from repro_torch.core import _build
+
+    lib = _build.lib()
+    with torch.cuda.device(q.device):
+        err = lib.repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, K, S, T, D, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *out.stride()[:3], int(bool(causal)),
+            int(has_window), w, scale, _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash-attention kernel launch failed: cudaError {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -29,7 +29,10 @@ def _env():
 
 def test_import_leaves_jax_and_the_jax_package_out():
     code = ("import sys, repro_torch, repro_torch.launch.sweep, "
-            "repro_torch.core.kernels_cuda, repro_torch.core._build\n"
+            "repro_torch.core.kernels_cuda, repro_torch.core._build, "
+            "repro_torch.models.transformer, repro_torch.serving.engine, "
+            "repro_torch.launch.serve, repro_torch.kernels.ops, "
+            "repro_torch.carry, repro_torch.configs\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'benchmarks')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -66,7 +69,10 @@ def test_kernel_build_is_keyed_on_the_source_and_needs_nvcc():
 
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
-    assert path.name.startswith("libcongruence_") and path.suffix == ".so"
+    assert path.name.startswith("librepro_torch_") and path.suffix == ".so"
+    assert {s.name for s in _build.SOURCES} == {"congruence.cu",
+                                                "flash_attention.cu"}
+    assert all(s.exists() for s in _build.SOURCES)
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):

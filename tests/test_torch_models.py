@@ -1,0 +1,387 @@
+"""The port's dense model stack and serving engine held against the JAX
+package on the same weights and NumPy-seeded tokens.
+
+Weights come from ``repro.models.transformer.init_model`` and go across
+through ``repro_torch.carry.model_from_jax``.  Configs: the dense ones of
+``tests/test_models.py`` (``dense``, ``dense-qk-bias-halfrope``), chatglm3's
+``SMOKE`` and a sliding-window config, all at float32 compute.
+
+Pinned tolerances (max abs error):
+  * forward hidden states and ``loss_fn``: 1e-5 (the same float32 math;
+    the sums run in another order);
+  * ``attn_impl="pallas"`` on both sides (the JAX kernel in interpret mode,
+    the port's K5 plain version): 1e-4, the pin of
+    ``tests/test_models.py::test_pallas_attention_equivalence``;
+  * prefill + decode logits against the JAX package's, and decode against
+    the forward, 1e-4 relative to the largest logit
+    (``tests/test_models.py::test_decode_matches_forward``);
+  * bfloat16 compute: 2e-2 relative to the largest magnitude;
+  * the engine's token streams: identical.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as JC
+from repro.models import transformer as JT
+from repro.models.config import Family as JFamily
+from repro.models.config import ModelConfig as JModelConfig
+from repro.serving import engine as JE
+
+from repro_torch import carry
+from repro_torch import configs as PC
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.models import layers as PL
+from repro_torch.models import transformer as PT
+from repro_torch.models.config import Family, ModelConfig
+from repro_torch.serving import engine as PE
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KEY = jax.random.PRNGKey(1)
+HIDDEN_TOL = 1e-5
+PALLAS_TOL = 1e-4
+DECODE_RTOL = 1e-4
+BF16_RTOL = 2e-2
+
+
+def _dense(**kw):
+    base = dict(name="dense", family="dense", n_layers=3, d_model=32,
+                n_heads=4, n_kv_heads=2, d_ff=64, vocab_size=64,
+                remat="none", compute_dtype="float32")
+    base.update(kw)
+    return base
+
+
+def _chatglm_smoke():
+    fields = {f: getattr(JC.get_config("chatglm3-6b", smoke=True), f)
+              for f in ("name", "n_layers", "d_model", "n_heads", "n_kv_heads",
+                        "d_ff", "vocab_size", "rope_style", "qkv_bias", "mlp",
+                        "norm", "logits_chunk", "attn_q_chunk", "remat")}
+    return dict(fields, family="dense", compute_dtype="float32")
+
+
+CONFIGS = {
+    "dense": _dense(),
+    "dense-qk-bias-halfrope": _dense(name="dq", qk_norm=True, qkv_bias=True,
+                                     rope_style="half"),
+    "chatglm3-smoke": _chatglm_smoke(),
+    "sliding-window": _dense(name="swa", attn_window=6, mlp="geglu"),
+}
+
+
+def both_cfgs(fields):
+    jfields = dict(fields, family=JFamily(fields["family"]))
+    pfields = dict(fields, family=Family(fields["family"]))
+    return JModelConfig(**jfields), ModelConfig(**pfields)
+
+
+class Pair:
+    """One config's weights on both sides."""
+
+    def __init__(self, fields):
+        self.jcfg, self.pcfg = both_cfgs(fields)
+        self.params, _ = JT.init_model(KEY, self.jcfg)
+        self.model = carry.model_from_jax(
+            self.pcfg, jax.tree.map(np.asarray, self.params), device="cpu")
+
+
+@pytest.fixture(scope="module", params=list(CONFIGS))
+def pair(request):
+    return Pair(CONFIGS[request.param])
+
+
+def tokens(B, S, vocab, seed=2):
+    toks = np.random.default_rng(seed).integers(0, vocab, (B, S))
+    return ({"tokens": jnp.asarray(toks, jnp.int32), "labels": jnp.asarray(toks, jnp.int32)},
+            {"tokens": torch.as_tensor(toks), "labels": torch.as_tensor(toks)})
+
+
+def max_err(a, b):
+    return float(np.max(np.abs(np.asarray(a, np.float32) - np.asarray(b, np.float32))))
+
+
+def rel_err(got, want):
+    want = np.asarray(want, np.float32)
+    return max_err(got, want) / (float(np.max(np.abs(want))) + 1e-6)
+
+
+# --------------------------------------------------------------------------- #
+# Forward and loss
+# --------------------------------------------------------------------------- #
+
+
+def test_config_copy_matches_the_jax_registry():
+    assert PC.ARCH_IDS == JC.ARCH_IDS
+    for arch in JC.ARCH_IDS:
+        for smoke in (False, True):
+            j, p = JC.get_config(arch, smoke), PC.get_config(arch, smoke)
+            assert repr(j) == repr(p)
+            assert j.param_counts() == p.param_counts()
+    glm = PC.get_config("chatglm3-6b")
+    assert abs(glm.param_counts()[0] - 6.24e9) < 0.01e9
+
+
+def test_forward_matches_jax(pair):
+    jb, tb = tokens(2, 12, pair.jcfg.vocab_size)
+    hj, auxj = JT.forward(pair.params, pair.jcfg, jb)
+    ht, auxt = PT.forward(pair.model, pair.pcfg, tb)
+    assert ht.shape == hj.shape and ht.dtype == torch.float32
+    assert max_err(ht, hj) < HIDDEN_TOL
+    assert float(auxt) == float(auxj) == 0.0
+
+
+def test_pallas_forward_matches_jax_in_interpret_mode(pair):
+    jb, tb = tokens(2, 32, pair.jcfg.vocab_size, seed=3)
+    jcfg, pcfg = pair.jcfg.replace(attn_impl="pallas"), pair.pcfg.replace(attn_impl="pallas")
+    hj, _ = JT.forward(pair.params, jcfg, jb)
+    ht, _ = PT.forward(pair.model, pcfg, tb)
+    assert max_err(ht, hj) < PALLAS_TOL
+    h_plain, _ = PT.forward(pair.model, pair.pcfg, tb)
+    assert max_err(ht, h_plain) < PALLAS_TOL
+
+
+def test_loss_matches_jax(pair):
+    jb, tb = tokens(2, 16, pair.jcfg.vocab_size, seed=4)
+    lj, mj = JT.loss_fn(pair.params, pair.jcfg, jb)
+    lt, mt = PT.loss_fn(pair.model, pair.pcfg, tb)
+    assert abs(float(lt) - float(lj)) < HIDDEN_TOL
+    assert abs(float(mt["loss"]) - float(mj["loss"])) < HIDDEN_TOL
+    assert float(mt["accuracy"]) == float(mj["accuracy"])
+
+
+@pytest.mark.parametrize("variant", [dict(attn_q_chunk=4), dict(logits_chunk=4)],
+                         ids=["attn_q_chunk", "logits_chunk"])
+def test_chunked_variants_match_jax(variant):
+    p = Pair(CONFIGS["dense-qk-bias-halfrope"])
+    jcfg, pcfg = p.jcfg.replace(**variant), p.pcfg.replace(**variant)
+    jb, tb = tokens(2, 16, jcfg.vocab_size, seed=5)
+    lj, _ = JT.loss_fn(p.params, jcfg, jb)
+    lt, _ = PT.loss_fn(p.model, pcfg, tb)
+    assert abs(float(lt) - float(lj)) < HIDDEN_TOL
+    hj, _ = JT.forward(p.params, jcfg, jb)
+    ht, _ = PT.forward(p.model, pcfg, tb)
+    assert max_err(ht, hj) < HIDDEN_TOL
+    # and the chunked port equals the unchunked port
+    l_plain, _ = PT.loss_fn(p.model, p.pcfg, tb)
+    assert abs(float(lt) - float(l_plain)) < HIDDEN_TOL
+
+
+def test_bf16_compute_matches_jax():
+    p = Pair(dict(CONFIGS["chatglm3-smoke"], compute_dtype="bfloat16"))
+    jb, tb = tokens(2, 16, p.jcfg.vocab_size, seed=6)
+    hj, _ = JT.forward(p.params, p.jcfg, jb)
+    ht, _ = PT.forward(p.model, p.pcfg, tb)
+    assert ht.dtype == torch.bfloat16
+    assert rel_err(ht.float(), np.asarray(hj, np.float32)) < BF16_RTOL
+    lj, _ = JT.loss_fn(p.params, p.jcfg, jb)
+    lt, _ = PT.loss_fn(p.model, p.pcfg, tb)
+    assert abs(float(lt) - float(lj)) < BF16_RTOL * abs(float(lj))
+
+
+# --------------------------------------------------------------------------- #
+# Prefill and decode
+# --------------------------------------------------------------------------- #
+
+
+def _jax_prefill_decode(pair, jb, S, index):
+    cache, _ = JT.init_cache(pair.jcfg, jb["tokens"].shape[0], S)
+    cache, _ = JT.prefill(pair.params, pair.jcfg, {"tokens": jb["tokens"][:, :S - 1]}, cache)
+    return JT.decode_step(pair.params, pair.jcfg, cache, jb["tokens"][:, S - 1:], index)[1]
+
+
+@pytest.mark.parametrize("per_row", [False, True], ids=["scalar-index", "row-index"])
+def test_prefill_decode_matches_jax_and_forward(pair, per_row):
+    B = 2
+    S = 6 if pair.pcfg.attn_window else 12   # the JAX prefill fits the window
+    jb, tb = tokens(B, S, pair.jcfg.vocab_size, seed=7)
+    j_index = jnp.full((B,), S - 1, jnp.int32) if per_row else jnp.int32(S - 1)
+    t_index = torch.full((B,), S - 1) if per_row else S - 1
+    want = _jax_prefill_decode(pair, jb, S, j_index)
+
+    cache = PT.init_cache(pair.pcfg, B, S, device="cpu")
+    cache, last = PT.prefill(pair.model, pair.pcfg, {"tokens": tb["tokens"][:, :S - 1]}, cache)
+    cache, got = PT.decode_step(pair.model, pair.pcfg, cache, tb["tokens"][:, S - 1:], t_index)
+    assert got.shape == (B, 1, pair.pcfg.vocab_size)
+    assert rel_err(got, want) < DECODE_RTOL
+
+    hidden, _ = PT.forward(pair.model, pair.pcfg, tb)
+    full = PL.unembed_apply(pair.model.embed, pair.pcfg, hidden)
+    assert rel_err(got[:, 0], full[:, -1]) < DECODE_RTOL
+    assert rel_err(last[:, 0], full[:, -2]) < DECODE_RTOL
+
+
+def test_token_by_token_decode_wraps_the_window_ring_buffer():
+    """Sliding window 6 over 14 positions: the cache is a 6-slot ring.
+
+    Until the ring is full, the JAX package's decode reads the unwritten
+    slots as positions below 0 and leaves them unmasked (they hold zero
+    keys and values), so a decode from an empty cache does not equal the
+    forward; the port reproduces that step for step."""
+    p = Pair(CONFIGS["sliding-window"])
+    B, S = 2, 14
+    jb, tb = tokens(B, S, p.jcfg.vocab_size, seed=8)
+    jcache, _ = JT.init_cache(p.jcfg, B, S)
+    tcache = PT.init_cache(p.pcfg, B, S, device="cpu")
+    assert tcache["k"].shape[2] == 6
+    j_decode = jax.jit(JT.decode_step, static_argnums=1)
+    for i in range(S):
+        jcache, jl = j_decode(p.params, p.jcfg, jcache, jb["tokens"][:, i:i + 1],
+                              jnp.full((B,), i, jnp.int32))
+        tcache, tl = PT.decode_step(p.model, p.pcfg, tcache, tb["tokens"][:, i:i + 1],
+                                    torch.full((B,), i))
+        assert rel_err(tl, jl) < DECODE_RTOL, i
+
+
+# --------------------------------------------------------------------------- #
+# Serving engine
+# --------------------------------------------------------------------------- #
+
+
+@pytest.fixture(scope="module")
+def glm():
+    return Pair(CONFIGS["chatglm3-smoke"])
+
+
+def _requests(mod, prompts, new_tokens):
+    return [mod.Request(rid=i, prompt=list(p), max_new_tokens=n)
+            for i, (p, n) in enumerate(zip(prompts, new_tokens))]
+
+
+def _staggered(engine, reqs):
+    engine.submit(reqs[0])
+    engine.step()                       # r0 in flight before the others
+    for r in reqs[1:]:
+        engine.submit(r)
+    engine.run_to_completion()
+    return [r.generated for r in reqs]
+
+
+def test_engine_streams_match_the_jax_engine(glm):
+    prompts = [[1, 2, 3], [4, 5], [], [7, 8, 9, 10], [11]]
+    new_tokens = [5, 4, 3, 3, 6]
+    j_out = _staggered(JE.BatchedEngine(glm.params, glm.jcfg, slots=3, max_len=32),
+                       _requests(JE, prompts, new_tokens))
+    t_out = _staggered(PE.BatchedEngine(glm.model, glm.pcfg, slots=3, max_len=32,
+                                        device="cpu"),
+                       _requests(PE, prompts, new_tokens))
+    assert t_out == j_out
+    assert [len(g) for g in t_out] == new_tokens
+
+
+def _solo(glm, prompt, n):
+    eng = PE.BatchedEngine(glm.model, glm.pcfg, slots=1, max_len=32, device="cpu")
+    req = PE.Request(rid=0, prompt=list(prompt), max_new_tokens=n)
+    eng.submit(req)
+    eng.run_to_completion()
+    return req.generated
+
+
+def test_engine_pads_an_empty_prompt(glm):
+    eng = PE.BatchedEngine(glm.model, glm.pcfg, slots=2, max_len=32, device="cpu")
+    req = PE.Request(rid=0, prompt=[], max_new_tokens=3)
+    eng.submit(req)
+    eng.run_to_completion()
+    assert len(req.generated) == 3
+    assert req.generated == _solo(glm, [0], 3)
+
+
+def test_engine_staggered_admissions_match_solo(glm):
+    prompts, new_tokens = [[1, 2, 3], [4, 5], [7, 8, 9, 10]], [5, 5, 3]
+    solo = [_solo(glm, p, n) for p, n in zip(prompts, new_tokens)]
+    eng = PE.BatchedEngine(glm.model, glm.pcfg, slots=3, max_len=32, device="cpu")
+    assert _staggered(eng, _requests(PE, prompts, new_tokens)) == solo
+
+
+def test_engine_reuses_a_slot_after_completion(glm):
+    solo = _solo(glm, [11, 12], 4)
+    eng = PE.BatchedEngine(glm.model, glm.pcfg, slots=1, max_len=32, device="cpu")
+    first = PE.Request(rid=0, prompt=[3, 1, 4], max_new_tokens=3)
+    eng.submit(first)
+    eng.run_to_completion()
+    second = PE.Request(rid=1, prompt=[11, 12], max_new_tokens=4)
+    eng.submit(second)
+    eng.run_to_completion()
+    assert second.generated == solo
+
+
+def test_engine_never_reaches_the_flash_attention_kernel(glm, monkeypatch):
+    """The engine prefills token by token through decode_step (cached
+    attention), as the JAX engine does: K5 is for full-sequence forwards."""
+    pcfg = glm.pcfg.replace(attn_impl="pallas")
+    seen = []
+    real = FA.plain_flash_attention
+    monkeypatch.setattr(FA, "plain_flash_attention",
+                        lambda *a, **k: seen.append(1) or real(*a, **k))
+    eng = PE.BatchedEngine(glm.model, pcfg, slots=2, max_len=16, device="cpu")
+    eng.submit(PE.Request(rid=0, prompt=[1, 2, 3], max_new_tokens=2))
+    eng.run_to_completion()
+    assert seen == []
+    PT.forward(glm.model, pcfg, tokens(1, 4, pcfg.vocab_size)[1])
+    assert seen == [1] * pcfg.n_layers   # the forward: once per layer
+
+
+def test_serve_launcher_runs_on_the_cpu():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "chatglm3-6b",
+         "--smoke", "--device", "cpu", "--requests", "3", "--new-tokens", "2"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "served 3 requests" in out.stdout
+    bad = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "falcon-mamba-7b", "--smoke", "--device", "cpu"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert bad.returncode == 2 and "ROADMAP.md Queue 1 item 1" in bad.stderr
+
+
+# --------------------------------------------------------------------------- #
+# Devices and families
+# --------------------------------------------------------------------------- #
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(glm):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PT.init_model(glm.pcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PT.init_cache(glm.pcfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PE.BatchedEngine(glm.model, glm.pcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        carry.model_from_jax(glm.pcfg, jax.tree.map(np.asarray, glm.params))
+    model = PT.init_model(glm.pcfg, torch.Generator().manual_seed(0), device="cpu")
+    assert model.device.type == "cpu"
+    # param_counts leaves the final norm out
+    assert sum(p.numel() for p in model.parameters()) == \
+        int(glm.pcfg.param_counts()[0]) + glm.pcfg.d_model
+
+
+@pytest.mark.parametrize("arch", [a for a in PC.ARCH_IDS
+                                  if PC.get_config(a).family != Family.DENSE])
+def test_other_families_name_their_slice(arch):
+    cfg = PC.get_config(arch, smoke=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+        PT.init_model(cfg, device="cpu")
+
+
+def test_init_draws_the_jax_package_scales():
+    cfg = PC.get_config("chatglm3-6b", smoke=True)
+    model = PT.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    blk = model.layers[0]
+    d, q_dim = cfg.d_model, cfg.q_dim
+    assert blk.attn["wq"].shape == (d, cfg.n_heads, cfg.head_dim_)
+    assert blk.attn["wo"].shape == (cfg.n_heads, cfg.head_dim_, d)
+    assert blk.mlp["w_gate"].shape == (d, cfg.d_ff)
+    assert abs(float(blk.mlp["w_gate"].std()) * d ** 0.5 - 1) < 0.05
+    assert abs(float(blk.attn["wo"].std()) * q_dim ** 0.5 - 1) < 0.05
+    assert abs(float(model.embed["tok"].std()) - 1) < 0.05
+    assert float(blk.attn["bq"].abs().max()) == 0.0
