@@ -36,7 +36,28 @@ Phases (any failure raises and the exit code is not 0):
      requests of 8 new tokens with staggered admissions, each stream
      against the same request served alone; timings of the forward, the
      decode step and the engine;
-  9. the kernels line, the card, and the result line.
+  9. hold K6 (RMSNorm) and K7 (fused residual RMSNorm) against their plain
+     versions at rows {1, 37, 256, 8192} x d {64, 128, 4096} x {f32, bf16}
+     x and f32 / bf16 scale (1e-5 f32, 2e-2 bf16), and K8 (selective scan)
+     at (B, S, Din, N) in {(1,1,64,4), (1,32,64,4), (2,64,128,8),
+     (1,48,96,16), (4,2048,8192,16)} x {f32, bf16} inputs, with and without
+     h0, with contiguous and with the model's strided B / C (2e-4 f32,
+     2e-2 bf16), plus the model's mixed call (bf16 xi / B / C, f32 dt_raw,
+     f32 y, hT written over h0) and a split sequence with the carried state
+     against the whole one; then time each at the model's shape beside its
+     plain version, its bound and its library call;
+ 10. main path, the SSM stack: falcon-mamba-7b at full width and depth (64
+     layers, weights drawn on the card, bf16 compute; chatglm3's weights
+     freed first), ``forward`` and ``loss_fn`` on 4 x 2048 seeded tokens
+     with ``attn_impl="pallas"`` (1 K6, 64 K7 and 64 K8 launches per
+     forward), held against the plain blocks (``"xla"``) on the same
+     weights;
+ 11. main path, SSM serving: ``prefill`` + ``decode_step`` through K6-K8
+     against the forward's last-token logits in f32 compute; the decode
+     step at B 4 after a 2048-token prefill; ``BatchedEngine`` (4 slots) on
+     8 requests of 8 new tokens, staggered, timed, and a one-slot engine's
+     streams against a greedy ``prefill`` / ``decode_step`` loop (f32);
+ 12. the kernels line, the card, and the result line.
 
 It needs one CUDA card, the CUDA toolkit's nvcc and the repository's
 ``src/`` tree; without them it exits with an error and prints no result.
@@ -96,6 +117,25 @@ HIDDEN_RTOL = 2e-2   # K5 vs plain attention, bf16, relative to max |hidden|
 BF16_NOISE_FACTOR = 1.5
 LOSS_ATOL = 1e-2
 DECODE_RTOL = 1e-4   # f32 compute, tests/test_models.py
+RMS_SOURCE = "src/repro_torch/csrc/rmsnorm.cu"
+RMS_REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm.py:18",
+                "rmsnorm_residual": "src/repro/kernels/rmsnorm.py:25"}
+RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
+RMS_ROWS = (1, 37, 256, 8192)
+RMS_D = (64, 128, 4096)
+SCAN_SOURCE = "src/repro_torch/csrc/selective_scan.cu"
+SCAN_REPLACES = "src/repro/kernels/selective_scan.py:27"
+SCAN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}  # tol_for, tests/test_kernels.py
+SCAN_SHAPES = ((1, 1, 64, 4), (1, 32, 64, 4), (2, 64, 128, 8), (1, 48, 96, 16),
+               (4, 2048, 8192, 16))
+#: The SSM path: falcon-mamba-7b, B x S tokens in bf16 compute; the decode
+#: step is timed after a prefill of SSM_DECODE_AFTER tokens.
+SSM_ARCH, SSM_B, SSM_S, SSM_DECODE_AFTER = "falcon-mamba-7b", 4, 2048, 2048
+#: exp / log on the special-function units: 16 per SM per clock on sm_90
+#: (CUDA C++ Programming Guide, arithmetic instruction throughput), 132 SMs,
+#: 1.98 GHz boost clock.  An assumption for the scan's bound, stated beside
+#: the data sheet's f32 and HBM peaks above.
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
 
 
 class Failure(Exception):
@@ -627,6 +667,10 @@ def device_split(torch, fn):
         name = evt.name.lower()
         if "flash_attention_k" in name:
             group = "K5"
+        elif "rmsnorm_k" in name:
+            group = "K6/K7"
+        elif "selective_scan_k" in name:
+            group = "K8"
         elif any(k in name for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
             group = "matmul"
         elif "memcpy" in name or "memset" in name:
@@ -807,6 +851,384 @@ def phase_serving(torch, FA, T, E, model, cfg, dev):
 
 
 # --------------------------------------------------------------------------- #
+# Phase 9: K6, K7 (RMSNorm) and K8 (selective scan) against their plain
+# versions, and their timings
+# --------------------------------------------------------------------------- #
+
+
+def _err_within(torch, got, want, tol, what):
+    """Max abs error of ``got`` against ``want``; fails beyond tol + tol|want|."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bad = ~(err <= tol + tol * want.abs())
+    if bool(bad.any()):
+        raise Failure(f"{what}: {int(bad.sum())} values off by more than {tol} "
+                      f"(max abs err {float(err.max()):.3e})")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def scan_work(B, S, Din, N, in_bytes, dt_bytes, y_bytes, with_h0):
+    """(bytes, f32 operations, special-function operations) of one scan:
+    xi, dt_raw, B, C, A (and h0) read once, y and hT written once; per
+    (b, t, d, n) 7 f32 operations (dt*A, exp, the two multiply-adds of the
+    update, dt*x*B, h*C and its sum) and one exp; per (b, t, d) softplus
+    (6 operations, an exp and a log1p) and dt*x."""
+    nbytes = (B * S * Din * (in_bytes + dt_bytes + y_bytes)
+              + 2 * B * S * N * in_bytes + Din * N * 4
+              + B * Din * N * 4 * (2 if with_h0 else 1))
+    ops = B * S * Din * (7 * N + 7)
+    sfu = B * S * Din * (N + 2)
+    return nbytes, ops, sfu
+
+
+def scan_bound(B, S, Din, N, in_bytes, dt_bytes, y_bytes, with_h0):
+    nbytes, ops, sfu = scan_work(B, S, Din, N, in_bytes, dt_bytes, y_bytes, with_h0)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(ops / F32_OPS_PER_S, sfu / SFU_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rms_bound(rows, d, x_bytes, scale_bytes, residual):
+    """K6: x read, out written; K7: x and r read, out and h written.  About
+    5 f32 operations an element (K7 one more, the add)."""
+    n = rows * d
+    nbytes = n * x_bytes * (4 if residual else 2) + d * scale_bytes
+    ops = n * (6 if residual else 5)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")), nbytes
+
+
+def phase_ssm_kernels(torch, RN, SS, dev):
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def rand(*shape, scale=1.0, shift=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale + shift
+
+    errs = {"rmsnorm": 0.0, "rmsnorm_residual": 0.0, "selective_scan": 0.0}
+    n_rms = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = RMS_TOL[str(dtype).split(".")[-1]]
+        for rows in RMS_ROWS:
+            for d in RMS_D:
+                x, r = rand(rows, d).to(dtype), rand(rows, d).to(dtype)
+                for scale in (rand(d, shift=1.0), rand(d, shift=1.0).bfloat16()):
+                    what = f"{dtype} rows={rows} d={d} scale {scale.dtype}"
+                    errs["rmsnorm"] = max(errs["rmsnorm"], _err_within(
+                        torch, RN.rmsnorm(x, scale), RN.plain_rmsnorm(x, scale),
+                        tol, f"K6 {what}"))
+                    normed, h = RN.rmsnorm_residual(x, r, scale)
+                    w_normed, w_h = RN.plain_rmsnorm_residual(x, r, scale)
+                    errs["rmsnorm_residual"] = max(
+                        errs["rmsnorm_residual"],
+                        _err_within(torch, normed, w_normed, tol, f"K7 {what} normed"),
+                        _err_within(torch, h, w_h, 0.0, f"K7 {what} h"))
+                    check(normed.dtype == h.dtype == dtype, f"K7 {what}: dtype")
+                    n_rms += 1
+    torch.cuda.synchronize()
+
+    n_scan = 0
+    for B, S, Din, N in SCAN_SHAPES:
+        xi, dt = rand(B, S, Din, scale=0.5), rand(B, S, Din, scale=0.5, shift=-1.0)
+        dbc = rand(B, S, 8 + 2 * N, scale=0.3)
+        A = -torch.exp(rand(Din, N, scale=0.3))
+        h0 = rand(B, Din, N, scale=0.5)
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = SCAN_TOL[str(dtype).split(".")[-1]]
+            views = [t.to(dtype) for t in torch.split(dbc, [8, N, N], dim=-1)[1:]]
+            for strided in (False, True):
+                bm, cm = views if strided else [v.contiguous() for v in views]
+                for state in (None, h0):
+                    what = (f"{dtype} B={B} S={S} Din={Din} N={N} "
+                            f"h0={state is not None} strided={strided}")
+                    ins = (xi.to(dtype), dt.to(dtype), bm, cm)
+                    y, hT = SS.selective_scan(*ins, A, state)
+                    wy, wh = SS.plain_selective_scan(*ins, A, state)
+                    check(y.dtype == dtype and hT.dtype == torch.float32, f"K8 {what}: dtype")
+                    errs["selective_scan"] = max(
+                        errs["selective_scan"],
+                        _err_within(torch, y, wy, tol, f"K8 {what} y"),
+                        _err_within(torch, hT, wh, tol, f"K8 {what} hT"))
+                    n_scan += 1
+        # the model's call: bf16 xi / B / C views, f32 dt_raw, f32 y, hT
+        # written over h0
+        bm, cm = torch.split(dbc.bfloat16(), [8, N, N], dim=-1)[1:]
+        state = h0.clone()
+        wy, wh = SS.plain_selective_scan(xi.bfloat16(), dt, bm, cm, A, h0,
+                                         y_dtype=torch.float32)
+        y, _ = SS.selective_scan(xi.bfloat16(), dt, bm, cm, A, state,
+                                 y_dtype=torch.float32, out_state=state)
+        what = f"model call B={B} S={S} Din={Din} N={N}"
+        errs["selective_scan"] = max(
+            errs["selective_scan"],
+            _err_within(torch, y, wy, SCAN_TOL["float32"], f"K8 {what} y"),
+            _err_within(torch, state, wh, SCAN_TOL["float32"], f"K8 {what} hT in place"))
+        # a split sequence with the carried state == the whole sequence
+        if S > 1:
+            half = S // 2
+            bm, cm = torch.split(dbc, [8, N, N], dim=-1)[1:]
+            y_full, h_full = SS.selective_scan(xi, dt, bm, cm, A)
+            _, h1 = SS.selective_scan(xi[:, :half], dt[:, :half], bm[:, :half],
+                                      cm[:, :half], A)
+            y2, h2 = SS.selective_scan(xi[:, half:], dt[:, half:], bm[:, half:],
+                                       cm[:, half:], A, h1)
+            _err_within(torch, y2, y_full[:, half:], 1e-5, f"K8 split {what} y")
+            _err_within(torch, h2, h_full, 1e-5, f"K8 split {what} hT")
+        n_scan += 1
+    torch.cuda.synchronize()
+    log(f"phase 9: K6/K7 match their plain versions on {n_rms} configurations "
+        f"(f32 at 1e-5, bf16 at 2e-2; max abs err K6 {errs['rmsnorm']:.3e}, K7 "
+        f"{errs['rmsnorm_residual']:.3e}); K8 on {n_scan} (f32 at 2e-4, bf16 at "
+        f"2e-2, split == whole at 1e-5; max abs err {errs['selective_scan']:.3e})")
+
+    # timings at the model's shapes
+    rows = {}
+    R, D = SSM_B * SSM_S, 4096
+    x, r = rand(R, D).bfloat16(), rand(R, D).bfloat16()
+    scale = rand(D, shift=1.0)
+    scale_bf16 = scale.bfloat16()
+    rms_norm = torch.nn.functional.rms_norm
+    for name, kern, plain, library, residual in (
+            ("rmsnorm", lambda: RN.rmsnorm(x, scale),
+             lambda: RN.plain_rmsnorm(x, scale),
+             lambda: rms_norm(x, (D,), weight=scale_bf16, eps=1e-6), False),
+            ("rmsnorm_residual", lambda: RN.rmsnorm_residual(x, r, scale),
+             lambda: RN.plain_rmsnorm_residual(x, r, scale), None, True)):
+        (bound_ms, bound_by), nbytes = rms_bound(R, D, 2, 4, residual)
+        ms = cuda_ms(torch, kern)
+        row = dict(ms=ms, plain_ms=cuda_ms(torch, plain), bound_ms=bound_ms,
+                   bound_by=bound_by,
+                   library_ms=cuda_ms(torch, library) if library else None,
+                   max_abs_err=errs[name])
+        rows[name] = row
+        log(json.dumps({"timing": name, "rows": R, "d": D, "x": "bfloat16",
+                        "scale": "float32", **row, "bytes": nbytes,
+                        "gb_per_s": nbytes / ms / 1e6,
+                        "library": ("torch.nn.functional.rms_norm (bf16 weight)"
+                                    if library else "none: two PyTorch calls")}))
+    B, S, Din, N, Rk = SSM_B, SSM_S, 8192, 16, 256
+    xi = rand(B, S, Din, scale=0.5).bfloat16()
+    dt = rand(B, S, Din, scale=0.5, shift=-1.0)
+    dbc = rand(B, S, Rk + 2 * N, scale=0.3).bfloat16()
+    bm, cm = torch.split(dbc, [Rk, N, N], dim=-1)[1:]
+    A = -torch.exp(rand(Din, N, scale=0.3))
+    kern = lambda: SS.selective_scan(xi, dt, bm, cm, A, y_dtype=torch.float32)
+    plain = lambda: SS.plain_selective_scan(xi, dt, bm, cm, A, y_dtype=torch.float32)
+    ms = cuda_ms(torch, kern)
+    plain_ms = cuda_ms(torch, plain, reps=1, rounds=3)
+    bound_ms, bound_by = scan_bound(B, S, Din, N, 2, 4, 4, False)
+    nbytes, ops, sfu = scan_work(B, S, Din, N, 2, 4, 4, False)
+    rows["selective_scan"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, library_ms=None,
+                                  max_abs_err=errs["selective_scan"])
+    log(json.dumps({"timing": "selective_scan", "B": B, "S": S, "Din": Din, "N": N,
+                    "inputs": "bf16 xi, B, C (strided views), f32 dt_raw, f32 y",
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "bytes": nbytes, "f32_operations": ops,
+                    "sfu_operations": sfu,
+                    "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "f32_ms": ops / F32_OPS_PER_S * 1e3,
+                    "sfu_ms": sfu / SFU_OPS_PER_S * 1e3,
+                    "library_ms": None, "library": "none: no PyTorch call scans"}))
+    return rows
+
+
+# --------------------------------------------------------------------------- #
+# Phases 10 and 11: the SSM stack and serving at falcon-mamba-7b width
+# --------------------------------------------------------------------------- #
+
+
+def ssm_counts(RN, SS):
+    return {"rmsnorm": RN.rmsnorm.launches,
+            "rmsnorm_residual": RN.rmsnorm_residual.launches,
+            "selective_scan": SS.selective_scan.launches}
+
+
+def reset_ssm_counts(RN, SS):
+    RN.rmsnorm.launches = RN.rmsnorm_residual.launches = 0
+    SS.selective_scan.launches = 0
+
+
+def phase_ssm_model(torch, RN, SS, T, C, dev):
+    cfg = C.get_config(SSM_ARCH)
+    check(cfg.compute_dtype == "bfloat16" and cfg.n_layers == 64
+          and cfg.d_model == 4096 and cfg.ssm.state_dim == 16, f"config {cfg}")
+    t0 = time.perf_counter()
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 10: {cfg.name} ({n_params:.4g} parameters, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB) drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    batch = _tokens(torch, dev, SSM_B, SSM_S, cfg.vocab_size, seed=1)
+    kc = cfg.replace(attn_impl="pallas")
+    L_ = cfg.n_layers
+    per_forward = {"rmsnorm": 1, "rmsnorm_residual": L_, "selective_scan": L_}
+
+    reset_ssm_counts(RN, SS)
+    t0 = time.perf_counter()
+    hidden, _ = T.forward(model, kc, batch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    fwd_counts = ssm_counts(RN, SS)
+    loss, metrics = T.loss_fn(model, kc, batch)
+    torch.cuda.synchronize()
+    counts = ssm_counts(RN, SS)
+    loss_counts = {k: counts[k] - fwd_counts[k] for k in counts}
+    log(f"phase 10: forward {tuple(hidden.shape)} {hidden.dtype} in {first_s:.3f} s "
+        f"(first call), loss {float(loss):.5f}, accuracy "
+        f"{float(metrics['accuracy']):.5f}; launches {fwd_counts} (forward), "
+        f"{loss_counts} (loss_fn)")
+    check(fwd_counts == per_forward and loss_counts == per_forward,
+          f"K6/K7/K8 launched {fwd_counts} / {loss_counts}, not {per_forward} "
+          "per forward")
+    check(hidden.shape == (SSM_B, SSM_S, cfg.d_model)
+          and hidden.dtype == torch.bfloat16, f"hidden {hidden.shape} {hidden.dtype}")
+    check(bool(torch.isfinite(hidden).all()) and math.isfinite(float(loss)),
+          "non-finite forward")
+
+    reset_ssm_counts(RN, SS)
+    t0 = time.perf_counter()
+    h_plain, _ = T.forward(model, cfg, batch)
+    torch.cuda.synchronize()
+    plain_first_s = time.perf_counter() - t0
+    loss_plain, _ = T.loss_fn(model, cfg, batch)
+    ref32, _ = T.forward(model, cfg.replace(compute_dtype="float32"), batch)
+    torch.cuda.synchronize()
+    check(sum(ssm_counts(RN, SS).values()) == 0, "the plain blocks launched K6-K8")
+    k32, _ = T.forward(model, kc.replace(compute_dtype="float32"), batch)
+    torch.cuda.synchronize()
+    check(ssm_counts(RN, SS) == per_forward, "the f32 forward missed K6-K8")
+    l_err = abs(float(loss) - float(loss_plain))
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+    h_err, k_f32_err, noise = rel(hidden, h_plain), rel(k32, ref32), rel(h_plain, ref32)
+    h_limit = max(HIDDEN_RTOL, BF16_NOISE_FACTOR * noise)
+    log(f"phase 10: against the plain blocks on the same weights: loss "
+        f"{float(loss_plain)!r} vs {float(loss)!r} (diff {l_err:.3e}, limit "
+        f"{LOSS_ATOL}); bf16 hidden max err {h_err:.3e} of max |hidden| (limit "
+        f"{h_limit:.3e}: {HIDDEN_RTOL}, or {BF16_NOISE_FACTOR} x the plain bf16 "
+        f"path's own distance {noise:.3e} from the f32 forward; the kernel bf16 "
+        f"path's distance {rel(hidden, ref32):.3e}); f32 compute, kernels vs "
+        f"plain: {k_f32_err:.3e} (limit {DECODE_RTOL}); plain forward first "
+        f"call {plain_first_s:.3f} s")
+    check(l_err <= LOSS_ATOL, f"loss differs from the plain blocks by {l_err:.3e}")
+    check(k_f32_err <= DECODE_RTOL,
+          f"f32 hidden differs from the plain blocks by {k_f32_err:.3e}")
+    check(h_err <= h_limit, f"bf16 hidden differs from the plain blocks by {h_err:.3e}")
+    del hidden, h_plain, ref32, k32
+
+    fwd_ms = cuda_ms(torch, lambda: T.forward(model, kc, batch), reps=2, rounds=3)
+    fwd_plain_ms = cuda_ms(torch, lambda: T.forward(model, cfg, batch), reps=1, rounds=2)
+    tokens = SSM_B * SSM_S
+    log(json.dumps({"end_to_end": "forward", "arch": cfg.name, "B": SSM_B,
+                    "S": SSM_S, "compute_dtype": cfg.compute_dtype,
+                    "attn_impl": "pallas", "ms": fwd_ms,
+                    "tokens_per_s": tokens / fwd_ms * 1e3,
+                    "plain_blocks_ms": fwd_plain_ms,
+                    "plain_blocks_tokens_per_s": tokens / fwd_plain_ms * 1e3}))
+    log(json.dumps({"profile": "forward", "arch": cfg.name, "attn_impl": "pallas",
+                    **device_split(torch, lambda: T.forward(model, kc, batch))}))
+    return model, cfg, {k: fwd_counts[k] + loss_counts[k] for k in fwd_counts}
+
+
+def _greedy(torch, T, model, cfg, prompt, n, dev):
+    """Greedy tokens: ``prefill`` of the prompt, then ``decode_step``s."""
+    cache = T.init_cache(cfg, 1, len(prompt) + n, device=dev)
+    toks = torch.tensor([prompt], dtype=torch.long, device=dev)
+    cache, logits = T.prefill(model, cfg, {"tokens": toks}, cache)
+    out = [int(logits[0, -1].argmax())]
+    for i in range(n - 1):
+        tok = torch.tensor([[out[-1]]], dtype=torch.long, device=dev)
+        cache, logits = T.decode_step(model, cfg, cache, tok, len(prompt) + i)
+        out.append(int(logits[0, -1].argmax()))
+    return out
+
+
+def phase_ssm_serving(torch, RN, SS, T, E, model, cfg, dev):
+    from repro_torch.models import layers as L
+
+    kc = cfg.replace(attn_impl="pallas")
+    cfg32 = kc.replace(compute_dtype="float32")
+    B, S = 2, 64
+    batch = _tokens(torch, dev, B, S, cfg.vocab_size, seed=2)
+    hidden, _ = T.forward(model, cfg32, batch)
+    full = L.unembed_apply(model.embed, cfg32, hidden[:, -1:])
+    cache = T.init_cache(cfg32, B, S, device=dev)
+    cache, _ = T.prefill(model, cfg32, {"tokens": batch["tokens"][:, :S - 1]}, cache)
+    cache, logits = T.decode_step(model, cfg32, cache, batch["tokens"][:, S - 1:], S - 1)
+    err = float((logits - full).abs().max() / (full.abs().max() + 1e-6))
+    log(f"phase 11: prefill({S - 1}) + decode_step through K6-K8 == forward's "
+        f"last logits in f32: {err:.3e} of max |logit| (limit {DECODE_RTOL})")
+    check(logits.shape == (B, 1, cfg.vocab_size) and err <= DECODE_RTOL,
+          f"decode differs from the forward by {err:.3e}")
+    del hidden, full, cache, logits
+
+    # the decode step at B 4 after a 2048-token prefill
+    batch = _tokens(torch, dev, 4, SSM_DECODE_AFTER, cfg.vocab_size, seed=3)
+    cache = T.init_cache(kc, 4, SSM_DECODE_AFTER + 64, device=dev)
+    cache, logits = T.prefill(model, kc, {"tokens": batch["tokens"]}, cache)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    reset_ssm_counts(RN, SS)
+    T.decode_step(model, kc, cache, tok, SSM_DECODE_AFTER)
+    step_counts = ssm_counts(RN, SS)
+    want = {"rmsnorm": 1, "rmsnorm_residual": cfg.n_layers, "selective_scan": cfg.n_layers}
+    check(step_counts == want, f"decode step launched {step_counts}, not {want}")
+    decode_ms = cuda_ms(
+        torch, lambda: T.decode_step(model, kc, cache, tok, SSM_DECODE_AFTER),
+        reps=5, rounds=3)
+    log(json.dumps({"end_to_end": "decode_step", "arch": cfg.name, "B": 4,
+                    "after_prefill": SSM_DECODE_AFTER, "compute_dtype": cfg.compute_dtype,
+                    "attn_impl": "pallas", "ms": decode_ms, "launches": step_counts}))
+    log(json.dumps({"profile": "decode_step", "arch": cfg.name, **device_split(
+        torch, lambda: T.decode_step(model, kc, cache, tok, SSM_DECODE_AFTER))}))
+    del cache
+
+    # the engine: 8 requests x 8 new tokens on 4 slots, staggered
+    def requests():
+        return [E.Request(rid=i, prompt=[(13 * i + j) % cfg.vocab_size for j in range(4)],
+                          max_new_tokens=8) for i in range(8)]
+
+    reset_ssm_counts(RN, SS)
+    eng = E.BatchedEngine(model, kc, slots=4, max_len=64, device=dev)
+    reqs = requests()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.submit(reqs[0])
+    eng.step()
+    for r in reqs[1:]:
+        eng.submit(r)
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    engine_counts = ssm_counts(RN, SS)
+    new_tokens = sum(len(r.generated) for r in reqs)
+    check(all(len(r.generated) == 8 and all(0 <= t < cfg.vocab_size for t in r.generated)
+              for r in reqs), "engine streams")
+    check(min(engine_counts.values()) > 0, f"the engine missed a kernel: {engine_counts}")
+    # A one-slot engine against greedy prefill + decode (f32 compute).  The
+    # staggered streams are not held to solo ones: the engine, as the JAX
+    # package's, decodes a dummy token in idle slots and never resets a
+    # slot's recurrent state (ROADMAP.md R7).
+    for req in requests()[:2]:
+        solo = E.BatchedEngine(model, cfg32, slots=1, max_len=64, device=dev)
+        solo.submit(req)
+        solo.run_to_completion()
+        want_toks = _greedy(torch, T, model, cfg32, req.prompt, 8, dev)
+        check(req.generated == want_toks,
+              f"request {req.rid}: one-slot engine {req.generated} != greedy {want_toks}")
+    log(f"phase 11: BatchedEngine (4 slots) served 8 requests x 8 new tokens, "
+        f"staggered, in {engine_s:.3f} s, launches {engine_counts}; a one-slot "
+        f"engine equals greedy prefill + decode_step on 2 requests (f32); "
+        f"staggered streams are not held to solo ones (ROADMAP.md R7)")
+    log(json.dumps({"end_to_end": "engine", "arch": cfg.name, "slots": 4,
+                    "requests": 8, "new_tokens": new_tokens, "seconds": engine_s,
+                    "tokens_per_s": new_tokens / engine_s}))
+
+
+# --------------------------------------------------------------------------- #
 
 
 def main() -> int:
@@ -853,10 +1275,20 @@ def main() -> int:
     from repro_torch.models import transformer as T
     from repro_torch.serving import engine as E
 
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.kernels import selective_scan as SS
+
     fa = phase_flash_attention(torch, FA, dev)
     torch.cuda.empty_cache()
     model, cfg, fa_launches = phase_model(torch, FA, T, C, dev)
     phase_serving(torch, FA, T, E, model, cfg, dev)
+    del model
+    torch.cuda.empty_cache()
+
+    ssm_rows = phase_ssm_kernels(torch, RN, SS, dev)
+    torch.cuda.empty_cache()
+    model, cfg, ssm_launches = phase_ssm_model(torch, RN, SS, T, C, dev)
+    phase_ssm_serving(torch, RN, SS, T, E, model, cfg, dev)
     del model
     torch.cuda.empty_cache()
 
@@ -875,6 +1307,16 @@ def main() -> int:
         max_abs_err=fa["max_abs_err"], ms=fa["ms"], plain_ms=fa["plain_ms"],
         bound_ms=fa["bound_ms"], bound_by=fa["bound_by"],
         library_ms=fa["library_ms"]))
+    for name in ("rmsnorm", "rmsnorm_residual", "selective_scan"):
+        row = ssm_rows[name]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=SCAN_SOURCE if name == "selective_scan" else RMS_SOURCE,
+            replaces=SCAN_REPLACES if name == "selective_scan" else RMS_REPLACES[name],
+            launches=ssm_launches[name], max_abs_err=row["max_abs_err"],
+            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"]))
+        check(kernels[-1]["launches"] > 0, f"{name} never launched")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ unchanged through ``WorkloadProfile.load``.
 
 The model stack's state is its weights.  Both packages keep the same
 parameter layout, so ``model_from_jax`` builds the port's model from the
-JAX package's ``init_model`` tree (as NumPy arrays) by copying.
+JAX package's ``init_model`` tree (as NumPy arrays) by copying: dense
+layers (``{"attn", "mlp", "ln1", "ln2"}``) and SSM layers (``{"mamba",
+"ln"}``) alike.
 """
 
 from __future__ import annotations

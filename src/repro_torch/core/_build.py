@@ -2,7 +2,9 @@
 
 ``nvcc`` compiles each source under ``src/repro_torch/csrc`` (the sweep
 kernels K1-K4 in ``congruence.cu``, flash attention K5 in
-``flash_attention.cu``) into an object, all sources at once in parallel,
+``flash_attention.cu``, RMSNorm K6 and fused residual RMSNorm K7 in
+``rmsnorm.cu``, the selective scan K8 in ``selective_scan.cu``) into an
+object, all sources at once in parallel,
 and links them into one shared library with a plain C interface, loaded
 with ``ctypes``.  The library is keyed by a hash of the sources and the
 flags, under ``build/repro_torch/`` at the root of the checkout, so a fresh
@@ -23,11 +25,12 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = (CSRC / "congruence.cu", CSRC / "flash_attention.cu")
+SOURCES = (CSRC / "congruence.cu", CSRC / "flash_attention.cu",
+           CSRC / "rmsnorm.cu", CSRC / "selective_scan.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
-#: No --use_fast_math: Eq. 1 needs IEEE division and exact comparisons, and
-#: the attention softmax uses expf and IEEE division.
+#: No --use_fast_math: Eq. 1 needs IEEE division and exact comparisons, the
+#: attention softmax uses expf and IEEE division, and the scan expf/log1pf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,6 +49,15 @@ _SIGNATURES = {
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                               _I, _I, _I, _F, _I, _P],
+    # x, scale, out; rows, d, eps, x dtype, scale dtype, vec, stream
+    "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
+    # x, residual, scale, out, h; rows, d, eps, x dtype, scale dtype, vec, stream
+    "repro_rmsnorm_residual": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
+    # xi, dt, B, C, A, h0, y, hT; B, S, Din, N; (batch, time) strides of
+    # xi, dt, B, C, y; dtypes of xi, dt, B, C, y; stream
+    "repro_selective_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                             _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

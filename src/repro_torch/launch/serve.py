@@ -8,8 +8,8 @@ The JAX package's ``repro.launch.serve`` flags, plus ``--device`` (the card
 unless ``cpu`` is asked for) and ``--seed`` (the ``torch.Generator`` the
 random weights are drawn from).  The port serves the dense family
 (``--arch chatglm3-6b``, the default, ``qwen3-32b``, ``qwen1.5-4b``,
-``deepseek-67b``); the other families exit with the ROADMAP slice that
-will port them.
+``deepseek-67b``) and the SSM family (``falcon-mamba-7b``); the other
+families exit with the ROADMAP item that will port them.
 """
 
 from __future__ import annotations

@@ -1,2 +1,2 @@
 """The model stack, ported to PyTorch: config schema, layers and the
-transformer (dense family in this slice)."""
+transformer (dense and SSM families so far)."""

@@ -12,7 +12,10 @@ across unchanged.  In the port:
   (``repro_torch.models.layers._sdpa``) and ``attn_impl="pallas"`` means
   the hand-written flash-attention kernel K5
   (``repro_torch.kernels.flash_attention``), taken where the JAX package
-  takes its Pallas kernel;
+  takes its Pallas kernel.  For the SSM family, which has no attention,
+  ``"pallas"`` selects the kernels K6-K8 (RMSNorm, fused residual RMSNorm,
+  selective scan; ``repro_torch.models.transformer``) and ``"xla"`` the
+  plain blocks -- the schema cannot gain a field, so this switch does;
 - ``remat`` and ``scan_layers`` have no effect: the port's path is
   inference only (nothing to rematerialize) and its layer loop is a Python
   loop either way.

@@ -1,17 +1,19 @@
-"""Neural net layers of the dense model stack, in PyTorch.
+"""Neural net layers of the dense and SSM model stacks, in PyTorch.
 
-The dense subset of the JAX package's ``repro/models/layers.py``: norms,
-rotary embeddings, embedding and unembedding, GQA attention (causal,
+The dense and SSM subset of the JAX package's ``repro/models/layers.py``:
+norms, rotary embeddings, embedding and unembedding, GQA attention (causal,
 sliding-window and prefix-LM masks; q-chunked; KV-cached with a scalar or
-per-row write index; or the flash-attention kernel K5) and the MLPs.  The
-MoE, RG-LRU and Mamba blocks come with later slices (ROADMAP.md, Queue 1).
+per-row write index; or the flash-attention kernel K5), the MLPs, the
+depthwise causal conv and the Mamba-1 mixer (the plain chunked scan, or the
+selective-scan kernel K8).  The MoE and RG-LRU blocks come with a later
+slice (ROADMAP.md, Queue 1).
 
 Parameters keep the JAX layout -- ``wq`` is ``(d, H, hd)``, ``wo`` is
 ``(H, hd, d)``, ``w_gate`` is ``(d, f)``, never ``nn.Linear``'s transposed
 ``(out, in)`` -- so weights carry across by copying.  Every ``*_apply``
 takes a mapping of tensors (a dict or an ``nn.ParameterDict``); every
 ``*_init`` draws a dict of tensors from a ``torch.Generator`` with the JAX
-package's scales.  KV caches are written in place.
+package's scales.  KV caches and recurrent states are written in place.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -373,3 +376,135 @@ def mlp_apply(p: Mapping, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     h = torch.matmul(x, p["w_up"].to(cd)) + p["b_up"].to(cd)
     h = F.gelu(h, approximate="tanh")
     return torch.matmul(h, p["w_down"].to(cd)) + p["b_down"].to(cd)
+
+
+# --------------------------------------------------------------------------- #
+# Depthwise causal conv + Mamba-1 block (falcon-mamba)
+# --------------------------------------------------------------------------- #
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                  state: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv over (B, S, C); w: (width, C).
+
+    Returns (y, new_state), the state being the last ``width - 1`` inputs
+    for decode.  Accumulates in ``x``'s dtype, tap by tap in the JAX
+    package's order, with no convolution library (whose TF32 and summation
+    order would differ)."""
+    width = w.shape[0]
+    if state is None:
+        state = x.new_zeros((x.shape[0], width - 1, x.shape[2]))
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
+    S = x.shape[1]
+    y = torch.zeros_like(x)
+    for i in range(width):
+        y = y + xp[:, i:i + S] * w[i].to(x.dtype)
+    if b is not None:
+        y = y + b.to(x.dtype)
+    new_state = xp[:, -(width - 1):] if width > 1 else state
+    return y, new_state
+
+
+def mamba_init(cfg: ModelConfig, generator, device) -> Params:
+    s = cfg.ssm
+    assert s is not None
+    dt = dtype_of(cfg.param_dtype)
+    d = cfg.d_model
+    d_in = s.expand * d
+    dt_rank = s.dt_rank or -(-d // 16)
+    n = s.state_dim
+    u = torch.rand((d_in,), generator=generator, device=device)
+    return {
+        "w_in": _init_dense((d, 2 * d_in), dt, generator, device),
+        "conv_w": _init_dense((s.conv_width, d_in), dt, generator, device, scale=0.5),
+        "conv_b": torch.zeros((d_in,), dtype=dt, device=device),
+        "w_xdbc": _init_dense((d_in, dt_rank + 2 * n), dt, generator, device),
+        "w_dt": _init_dense((dt_rank, d_in), dt, generator, device),
+        "dt_bias": torch.log(torch.expm1(
+            (u * 0.1 + 0.001).clamp_min(1e-4))).to(dt),
+        "A_log": torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=device)
+                           ).repeat(d_in, 1).to(dt),
+        "D": torch.ones((d_in,), dtype=dt, device=device),
+        "w_out": _init_dense((d_in, d), dt, generator, device),
+    }
+
+
+def _ssm_scan(xi: torch.Tensor, dt_in: torch.Tensor, Bm: torch.Tensor,
+              Cm: torch.Tensor, w_dt: torch.Tensor, dt_bias: torch.Tensor,
+              A: torch.Tensor, h0: torch.Tensor, chunk: int = 256
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain selective-scan core (``attn_impl="xla"``) -> (y f32
+    (B, S, Din), hT f32 (B, Din, N)).
+
+    Chunked as the JAX package's ``_ssm_scan``: each chunk's discretised
+    dA / dBx (chunk, B, Din, N) are computed for that chunk only, then the
+    recurrence steps through it.  ``softplus`` is JAX's
+    (``repro_torch.kernels.ref.softplus``)."""
+    B, S, Din = xi.shape
+    if S % chunk != 0:
+        chunk = S   # one chunk for odd sizes (decode, tests)
+    h = h0.float()
+    wf, bf = w_dt.float(), dt_bias.float()
+    ys = []
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        dt = kref.softplus(torch.matmul(dt_in[:, sl].float(), wf) + bf)
+        dt = dt.transpose(0, 1)                                  # (chunk, B, Din)
+        dA = torch.exp(dt[..., None] * A)                        # (chunk, B, Din, N)
+        dBx = (dt * xi[:, sl].float().transpose(0, 1))[..., None] \
+            * Bm[:, sl].float().transpose(0, 1)[:, :, None, :]
+        hs = torch.empty_like(dA)
+        for t in range(dA.shape[0]):
+            h = torch.addcmul(dBx[t], dA[t], h, out=hs[t])
+        Cf = Cm[:, sl].float().transpose(0, 1)                   # (chunk, B, N)
+        ys.append(torch.einsum("tbdn,tbn->btd", hs, Cf))
+    return torch.cat(ys, dim=1), h
+
+
+def mamba_apply(p: Mapping, cfg: ModelConfig, x: torch.Tensor, *,
+                state: Optional[Dict[str, torch.Tensor]] = None,
+                scan_chunk: int = 256) -> torch.Tensor:
+    """The Mamba-1 mixer over x (B, S, D) -> (B, S, D) in the compute dtype.
+
+    With ``state`` (a layer's ``{"conv": (B, width-1, Din), "ssm": (B, Din,
+    N)}`` cache views) the conv and scan start from it and the new states
+    are written back into it in place.  Under ``cfg.attn_impl == "pallas"``
+    the scan is the kernel K8, fed float32 ``dt_raw = dt_in @ w_dt +
+    dt_bias`` and asked for float32 ``y``; otherwise the plain
+    ``_ssm_scan``."""
+    s = cfg.ssm
+    assert s is not None
+    cd = dtype_of(cfg.compute_dtype)
+    x = x.to(cd)
+    n = s.state_dim
+    dt_rank = p["w_dt"].shape[0]
+
+    xz = torch.matmul(x, p["w_in"].to(cd))
+    xi, z = xz.chunk(2, dim=-1)
+
+    xi, new_conv = causal_conv1d(xi, p["conv_w"], p["conv_b"],
+                                 state["conv"] if state is not None else None)
+    xi = F.silu(xi)
+
+    dbc = torch.matmul(xi, p["w_xdbc"].to(cd))
+    dt_in, Bm, Cm = torch.split(dbc, [dt_rank, n, n], dim=-1)
+
+    A = -torch.exp(p["A_log"].float())                          # (Din, N)
+    h0 = state["ssm"] if state is not None else None
+    if cfg.attn_impl == "pallas":
+        dt_raw = torch.matmul(dt_in.float(), p["w_dt"].float()) + p["dt_bias"].float()
+        y, _ = kops.selective_scan(xi, dt_raw, Bm, Cm, A, h0, y_dtype=torch.float32,
+                                   out_state=h0)
+    else:
+        if h0 is None:
+            h0 = x.new_zeros((x.shape[0], xi.shape[-1], n), dtype=torch.float32)
+        y, hT = _ssm_scan(xi, dt_in, Bm, Cm, p["w_dt"], p["dt_bias"], A, h0,
+                          chunk=scan_chunk)
+        if state is not None:
+            state["ssm"].copy_(hT)
+    if state is not None:
+        state["conv"].copy_(new_conv)
+    y = y + p["D"].float() * xi.float()
+    y = y.to(cd) * F.silu(z)
+    return torch.matmul(y, p["w_out"].to(cd))

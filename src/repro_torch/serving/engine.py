@@ -1,10 +1,21 @@
 """Serving: prefill/decode steps and a batched continuous-batching scheduler.
 
 ``make_serve_step(cfg)`` returns the one-token decode step: given a KV
-cache covering ``seq_len`` context, decode exactly one new token per
-sequence.  The engine prefills token by token through that step, as the
-JAX package's engine does, so it never reaches the full-sequence
-flash-attention kernel K5.
+cache covering ``seq_len`` context (or the SSM's conv and scan states),
+decode exactly one new token per sequence.  The engine prefills token by
+token through that step, as the JAX package's engine does, so it never
+reaches the full-sequence flash-attention kernel K5; with the SSM family
+under ``attn_impl="pallas"`` every step runs K6, K7 and K8.
+
+The engine reproduces the JAX package's, including a behaviour that is
+harmless for a KV cache and not for a recurrent state (ROADMAP.md, R7):
+every lockstep step decodes a dummy token 0 in each slot that is not
+being prefilled or decoded, and a slot's state is not reset when a request
+is admitted.  A KV slot's dummy write is overwritten by its next real
+token; an SSM slot's conv and scan states advance on the dummy token, and
+a reused slot starts from the last request's state.  So with the SSM
+family a stream served beside others, or in a reused slot, may differ
+from the same request served alone in a fresh engine.
 """
 
 from __future__ import annotations
@@ -104,8 +115,8 @@ class BatchedEngine:
                 tok[slot] = t
                 idx = list(self.pos)
                 # other slots decode a dummy token at their own next position;
-                # the write is overwritten by their next real token, so
-                # concurrent prefill never corrupts an active slot's cache
+                # a KV write is overwritten by their next real token, an SSM
+                # state is not (module docstring, R7)
                 idx[slot] = i
                 nxt = self._step(tok, idx)
             self.pos[slot] = len(toks)

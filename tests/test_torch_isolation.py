@@ -32,6 +32,7 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "repro_torch.core.kernels_cuda, repro_torch.core._build, "
             "repro_torch.models.transformer, repro_torch.serving.engine, "
             "repro_torch.launch.serve, repro_torch.kernels.ops, "
+            "repro_torch.kernels.rmsnorm, repro_torch.kernels.selective_scan, "
             "repro_torch.carry, repro_torch.configs\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'benchmarks')]\n"
@@ -71,7 +72,9 @@ def test_kernel_build_is_keyed_on_the_source_and_needs_nvcc():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("librepro_torch_") and path.suffix == ".so"
     assert {s.name for s in _build.SOURCES} == {"congruence.cu",
-                                                "flash_attention.cu"}
+                                                "flash_attention.cu",
+                                                "rmsnorm.cu",
+                                                "selective_scan.cu"}
     assert all(s.exists() for s in _build.SOURCES)
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -1,14 +1,18 @@
-"""The port's dense model stack and serving engine held against the JAX
-package on the same weights and NumPy-seeded tokens.
+"""The port's dense and SSM model stacks and serving engine held against
+the JAX package on the same weights and NumPy-seeded tokens.
 
 Weights come from ``repro.models.transformer.init_model`` and go across
 through ``repro_torch.carry.model_from_jax``.  Configs: the dense ones of
 ``tests/test_models.py`` (``dense``, ``dense-qk-bias-halfrope``), chatglm3's
-``SMOKE`` and a sliding-window config, all at float32 compute.
+``SMOKE`` and a sliding-window config; the ``ssm`` config of
+``tests/test_models.py`` and falcon-mamba's ``SMOKE``; all at float32
+compute unless a test says otherwise.
 
 Pinned tolerances (max abs error):
   * forward hidden states and ``loss_fn``: 1e-5 (the same float32 math;
-    the sums run in another order);
+    the sums run in another order) -- for the SSM family under both
+    ``attn_impl`` settings, since the JAX package's SSM stack has no kernel
+    path and its outputs are the reference for both;
   * ``attn_impl="pallas"`` on both sides (the JAX kernel in interpret mode,
     the port's K5 plain version): 1e-4, the pin of
     ``tests/test_models.py::test_pallas_attention_equivalence``;
@@ -33,14 +37,16 @@ from repro import configs as JC
 from repro.models import transformer as JT
 from repro.models.config import Family as JFamily
 from repro.models.config import ModelConfig as JModelConfig
+from repro.models.config import SSMConfig as JSSMConfig
 from repro.serving import engine as JE
 
 from repro_torch import carry
 from repro_torch import configs as PC
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as PL
 from repro_torch.models import transformer as PT
-from repro_torch.models.config import Family, ModelConfig
+from repro_torch.models.config import Family, ModelConfig, SSMConfig
 from repro_torch.serving import engine as PE
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -79,6 +85,9 @@ CONFIGS = {
 def both_cfgs(fields):
     jfields = dict(fields, family=JFamily(fields["family"]))
     pfields = dict(fields, family=Family(fields["family"]))
+    if "ssm" in fields:
+        jfields["ssm"], pfields["ssm"] = (JSSMConfig(**fields["ssm"]),
+                                          SSMConfig(**fields["ssm"]))
     return JModelConfig(**jfields), ModelConfig(**pfields)
 
 
@@ -337,9 +346,9 @@ def test_serve_launcher_runs_on_the_cpu():
     assert "served 3 requests" in out.stdout
     bad = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-         "falcon-mamba-7b", "--smoke", "--device", "cpu"],
+         "qwen2-moe-a2.7b", "--smoke", "--device", "cpu"],
         env=env, capture_output=True, text=True, timeout=300)
-    assert bad.returncode == 2 and "ROADMAP.md Queue 1 item 1" in bad.stderr
+    assert bad.returncode == 2 and "ROADMAP.md Queue 1 item 3" in bad.stderr
 
 
 # --------------------------------------------------------------------------- #
@@ -365,8 +374,8 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(glm):
         int(glm.pcfg.param_counts()[0]) + glm.pcfg.d_model
 
 
-@pytest.mark.parametrize("arch", [a for a in PC.ARCH_IDS
-                                  if PC.get_config(a).family != Family.DENSE])
+@pytest.mark.parametrize("arch", [a for a in PC.ARCH_IDS if PC.get_config(a).family
+                                  not in (Family.DENSE, Family.SSM)])
 def test_other_families_name_their_slice(arch):
     cfg = PC.get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
@@ -385,3 +394,218 @@ def test_init_draws_the_jax_package_scales():
     assert abs(float(blk.attn["wo"].std()) * q_dim ** 0.5 - 1) < 0.05
     assert abs(float(model.embed["tok"].std()) - 1) < 0.05
     assert float(blk.attn["bq"].abs().max()) == 0.0
+
+
+# --------------------------------------------------------------------------- #
+# The SSM family (falcon-mamba)
+# --------------------------------------------------------------------------- #
+
+
+def _ssm_fields(name, **kw):
+    """``tests/test_models.py``'s ``ssm`` config, or a registry SMOKE
+    config, as plain fields (the SSM sub-config as a dict)."""
+    if name == "falcon-mamba-smoke":
+        j = JC.get_config("falcon-mamba-7b", smoke=True)
+        fields = {f: getattr(j, f) for f in ("name", "n_layers", "d_model", "n_heads",
+                                              "n_kv_heads", "d_ff", "vocab_size",
+                                              "rope_style", "logits_chunk", "remat")}
+        fields["ssm"] = dict(state_dim=j.ssm.state_dim, conv_width=j.ssm.conv_width,
+                             expand=j.ssm.expand)
+    else:
+        fields = dict(name="ssm", n_layers=2, d_model=32, n_heads=1, n_kv_heads=1,
+                      d_ff=0, vocab_size=64, remat="none", rope_style="none",
+                      ssm=dict(state_dim=4))
+    fields.update(family="ssm", compute_dtype="float32")
+    fields.update(kw)
+    return fields
+
+
+SSM_CONFIGS = ("ssm", "falcon-mamba-smoke")
+IMPLS = ("xla", "pallas")
+
+
+@pytest.fixture(scope="module", params=SSM_CONFIGS)
+def ssm_pair(request):
+    return Pair(_ssm_fields(request.param))
+
+
+@pytest.fixture(scope="module")
+def mamba():
+    return Pair(_ssm_fields("falcon-mamba-smoke"))
+
+
+def test_falcon_mamba_config_is_the_published_width():
+    cfg = PC.get_config("falcon-mamba-7b")
+    assert (cfg.n_layers, cfg.d_model, cfg.ssm.expand * cfg.d_model, cfg.ssm.state_dim,
+            cfg.ssm.conv_width, cfg.vocab_size) == (64, 4096, 8192, 16, 4, 65024)
+    assert abs(cfg.param_counts()[0] - 7.27e9) < 0.01e9
+
+
+def test_ssm_model_carries_the_jax_parameter_layout(mamba):
+    jlayer = jax.tree.map(lambda a: a[0], mamba.params["layers"])
+    blk = mamba.model.layers[0]
+    for name, leaf in jlayer["mamba"].items():
+        np.testing.assert_array_equal(blk.mamba[name].numpy(), np.asarray(leaf))
+    np.testing.assert_array_equal(blk.ln["scale"].numpy(), np.asarray(jlayer["ln"]["scale"]))
+    fresh = PT.init_model(mamba.pcfg, torch.Generator().manual_seed(0), device="cpu")
+    for name, t in fresh.layers[0].mamba.items():
+        assert t.shape == blk.mamba[name].shape, name
+    torch.testing.assert_close(fresh.layers[0].mamba["A_log"], blk.mamba["A_log"])
+    dt = torch.nn.functional.softplus(fresh.layers[0].mamba["dt_bias"])
+    assert 1e-3 <= float(dt.min()) and float(dt.max()) <= 0.101
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_ssm_forward_matches_jax(ssm_pair, impl):
+    jb, tb = tokens(2, 12, ssm_pair.jcfg.vocab_size)
+    hj, auxj = JT.forward(ssm_pair.params, ssm_pair.jcfg, jb)
+    ht, auxt = PT.forward(ssm_pair.model, ssm_pair.pcfg.replace(attn_impl=impl), tb)
+    assert ht.shape == hj.shape and ht.dtype == torch.float32
+    assert max_err(ht, hj) < HIDDEN_TOL
+    assert float(auxt) == float(auxj) == 0.0
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_ssm_loss_matches_jax(ssm_pair, impl):
+    jb, tb = tokens(2, 16, ssm_pair.jcfg.vocab_size, seed=4)
+    lj, mj = JT.loss_fn(ssm_pair.params, ssm_pair.jcfg, jb)
+    lt, mt = PT.loss_fn(ssm_pair.model, ssm_pair.pcfg.replace(attn_impl=impl), tb)
+    assert abs(float(lt) - float(lj)) < HIDDEN_TOL
+    assert float(mt["accuracy"]) == float(mj["accuracy"])
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_ssm_prefill_decode_matches_jax_and_forward(ssm_pair, impl):
+    B, S = 2, 12
+    pcfg = ssm_pair.pcfg.replace(attn_impl=impl)
+    jb, tb = tokens(B, S, ssm_pair.jcfg.vocab_size, seed=7)
+    want = _jax_prefill_decode(ssm_pair, jb, S, jnp.int32(S - 1))
+    cache = PT.init_cache(pcfg, B, S, device="cpu")
+    assert cache["conv"].dtype == torch.float32 and cache["ssm"].dtype == torch.float32
+    cache, last = PT.prefill(ssm_pair.model, pcfg, {"tokens": tb["tokens"][:, :S - 1]}, cache)
+    cache, got = PT.decode_step(ssm_pair.model, pcfg, cache, tb["tokens"][:, S - 1:], S - 1)
+    assert got.shape == (B, 1, pcfg.vocab_size)
+    assert rel_err(got, want) < DECODE_RTOL
+    hidden, _ = PT.forward(ssm_pair.model, pcfg, tb)
+    full = PL.unembed_apply(ssm_pair.model.embed, pcfg, hidden)
+    assert rel_err(got[:, 0], full[:, -1]) < DECODE_RTOL
+    assert rel_err(last[:, 0], full[:, -2]) < DECODE_RTOL
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_ssm_prefill_continues_from_the_cached_state(mamba, impl):
+    """A second prefill starts from the states the first left, as the JAX
+    package's does: two prefills == one over the joined prompt."""
+    B, S = 2, 10
+    pcfg = mamba.pcfg.replace(attn_impl=impl)
+    jb, tb = tokens(B, S, pcfg.vocab_size, seed=12)
+    jcache, _ = JT.init_cache(mamba.jcfg, B, S)
+    jcache, _ = JT.prefill(mamba.params, mamba.jcfg, {"tokens": jb["tokens"][:, :6]}, jcache)
+    jcache, want = JT.prefill(mamba.params, mamba.jcfg, {"tokens": jb["tokens"][:, 6:]}, jcache)
+    cache = PT.init_cache(pcfg, B, S, device="cpu")
+    cache, _ = PT.prefill(mamba.model, pcfg, {"tokens": tb["tokens"][:, :6]}, cache)
+    cache, got = PT.prefill(mamba.model, pcfg, {"tokens": tb["tokens"][:, 6:]}, cache)
+    assert rel_err(got, want) < DECODE_RTOL
+    for key in ("conv", "ssm"):
+        assert max_err(cache[key], jcache[key]) < HIDDEN_TOL
+    whole = PT.prefill(mamba.model, pcfg, {"tokens": tb["tokens"]},
+                       PT.init_cache(pcfg, B, S, device="cpu"))[1]
+    assert rel_err(got, whole) < DECODE_RTOL
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_ssm_bf16_compute_matches_jax(impl):
+    p = Pair(_ssm_fields("falcon-mamba-smoke", compute_dtype="bfloat16"))
+    pcfg = p.pcfg.replace(attn_impl=impl)
+    jb, tb = tokens(2, 16, p.jcfg.vocab_size, seed=6)
+    hj, _ = JT.forward(p.params, p.jcfg, jb)
+    ht, _ = PT.forward(p.model, pcfg, tb)
+    assert ht.dtype == torch.bfloat16
+    assert rel_err(ht.float(), np.asarray(hj, np.float32)) < BF16_RTOL
+    lj, _ = JT.loss_fn(p.params, p.jcfg, jb)
+    lt, _ = PT.loss_fn(p.model, pcfg, tb)
+    assert abs(float(lt) - float(lj)) < BF16_RTOL * abs(float(lj))
+
+
+@pytest.fixture(scope="module")
+def jax_mamba_engine_streams(mamba):
+    prompts = [[1, 2, 3], [4, 5], [], [7, 8, 9, 10], [11]]
+    new_tokens = [5, 4, 3, 3, 6]
+    out = _staggered(JE.BatchedEngine(mamba.params, mamba.jcfg, slots=3, max_len=32),
+                     _requests(JE, prompts, new_tokens))
+    return prompts, new_tokens, out
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_ssm_engine_streams_match_the_jax_engine(mamba, jax_mamba_engine_streams, impl):
+    prompts, new_tokens, j_out = jax_mamba_engine_streams
+    eng = PE.BatchedEngine(mamba.model, mamba.pcfg.replace(attn_impl=impl), slots=3,
+                           max_len=32, device="cpu")
+    t_out = _staggered(eng, _requests(PE, prompts, new_tokens))
+    assert t_out == j_out
+    assert [len(g) for g in t_out] == new_tokens
+
+
+def test_ssm_engine_reproduces_the_jax_engine_state_sharing(mamba, jax_mamba_engine_streams):
+    """ROADMAP.md R7: the JAX engine decodes a dummy token in every idle
+    slot and never resets a slot's state, so SSM streams served together
+    differ from the same requests served alone -- in both packages alike."""
+    prompts, new_tokens, j_out = jax_mamba_engine_streams
+    solo = [_solo(mamba, p, n) for p, n in zip(prompts, new_tokens)]
+    assert solo != j_out
+    j_solo = []
+    for p, n in zip(prompts[:2], new_tokens[:2]):
+        eng = JE.BatchedEngine(mamba.params, mamba.jcfg, slots=1, max_len=32)
+        req = JE.Request(rid=0, prompt=list(p), max_new_tokens=n)
+        eng.submit(req)
+        eng.run_to_completion()
+        j_solo.append(req.generated)
+    assert j_solo == solo[:2]
+    # the first request alone in its slot until the others arrive: its
+    # first tokens agree, later ones drift on the shared dummy decodes
+    assert j_out[0][:2] == solo[0][:2]
+
+
+def _count_kernel_calls(monkeypatch):
+    counts = {"rmsnorm": 0, "rmsnorm_residual": 0, "selective_scan": 0}
+    for name in counts:
+        real = getattr(kops, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            counts[_name] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(kops, name, counted)
+    return counts
+
+
+@pytest.mark.parametrize("n_layers", [2, 5])
+def test_ssm_kernel_calls_per_forward_and_decode_step(monkeypatch, n_layers):
+    """At full depth a forward and a decode step each make 1 K6, 64 K7 and
+    64 K8 calls: 1, L and L at depth L; the plain setting makes none."""
+    cfg = PC.get_config("falcon-mamba-7b", smoke=True).replace(
+        n_layers=n_layers, compute_dtype="float32")
+    model = PT.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    counts = _count_kernel_calls(monkeypatch)
+    tb = tokens(2, 6, cfg.vocab_size)[1]
+    PT.forward(model, cfg, tb)
+    assert counts == {"rmsnorm": 0, "rmsnorm_residual": 0, "selective_scan": 0}
+    k = cfg.replace(attn_impl="pallas")
+    want = {"rmsnorm": 1, "rmsnorm_residual": n_layers, "selective_scan": n_layers}
+    PT.forward(model, k, tb)
+    assert counts == want
+    cache = PT.init_cache(k, 2, 8, device="cpu")
+    counts.update(dict.fromkeys(counts, 0))
+    PT.decode_step(model, k, cache, tb["tokens"][:, :1], 0)
+    assert counts == want
+
+
+def test_serve_launcher_serves_falcon_mamba_on_the_cpu():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "falcon-mamba-7b",
+         "--smoke", "--device", "cpu", "--requests", "3", "--new-tokens", "2",
+         "--slots", "2"],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "served 3 requests" in out.stdout
