@@ -7,7 +7,8 @@ Phases (any failure raises and the exit code is not 0):
 
   1. print the card (``nvidia-smi``), build the kernels from
      ``src/repro_torch/csrc`` with nvcc for sm_90a (one nvcc per source,
-     all at once);
+     all at once), log ptxas's registers and spills and check, where
+     ``cuobjdump`` exists, that the tensor-core K5 kernel's SASS has HGMMA;
   2. hold each sweep kernel (K1 congruence, K2 step time, K3 default beta,
      K4 sweep statistics) against its plain PyTorch version on the card,
      at A in {1, 3, 64} x V in {1, 127, 128, 129, 513, 100003}, both timing
@@ -20,17 +21,21 @@ Phases (any failure raises and the exit code is not 0):
      checkpoint kill/resume round trip;
   5. timings by CUDA events at the phase-3/4 shapes, beside each kernel's
      bound, and the end-to-end split;
-  6. hold K5 (flash attention) against its plain version on the card: B in
-     {1, 2} x (H, K) in {(4, 4), (8, 2), (32, 2)} x D in {64, 128} x S = T in
-     {1, 127, 128, 129, 2048} x causal window {None, 64}, plus non-causal
-     S=127, T=300, in f32 (2e-4) and bf16 (2e-2), and at the model's
-     strided layout; then time it at the model's shape beside its plain
-     version, its bound and SDPA;
+  6. hold both K5 (flash attention) kernels against the plain version on
+     the card: B in {1, 2} x (H, K) in {(4, 4), (8, 2), (32, 2)} x D in
+     {64, 128} x S = T in {1, 127, 128, 129, 255, 256, 257, 2048} x causal
+     window {None, 64}, plus non-causal S=127, T=300, in f32 (2e-4) and bf16
+     (2e-2), and at the model's strided layout; bf16 must take the
+     tensor-core kernel (wgmma + TMA), f32 the FMA kernel; then time at the
+     model's shape the tensor-core kernel, the FMA kernel on the same bf16
+     tensors (the earlier design, for the record), the plain version, SDPA
+     and the bound, and the FMA kernel in f32 beside its own;
   7. main path, the model stack: chatglm3-6b at full width and depth
      (28 layers, weights drawn on the card, bf16 compute), ``forward`` and
      ``loss_fn`` on 4 x 2048 seeded tokens with ``attn_impl="pallas"`` (28
-     K5 launches per forward), held against the plain attention
-     (``attn_impl="xla"``) on the same weights;
+     K5 launches per forward, all on the tensor-core kernel), held against
+     the plain attention (``attn_impl="xla"``) on the same weights; the f32
+     forward's 28 launches take the FMA kernel;
   8. main path, serving: ``prefill`` + ``decode_step`` against the forward's
      last-token logits in f32 compute, and ``BatchedEngine`` (4 slots) on 8
      requests of 8 new tokens with staggered admissions, each stream
@@ -40,12 +45,14 @@ Phases (any failure raises and the exit code is not 0):
      versions at rows {1, 37, 256, 8192} x d {64, 128, 4096} x {f32, bf16}
      x and f32 / bf16 scale (1e-5 f32, 2e-2 bf16), and K8 (selective scan)
      at (B, S, Din, N) in {(1,1,64,4), (1,32,64,4), (2,64,128,8),
-     (1,48,96,16), (4,2048,8192,16)} x {f32, bf16} inputs, with and without
-     h0, with contiguous and with the model's strided B / C (2e-4 f32,
-     2e-2 bf16), plus the model's mixed call (bf16 xi / B / C, f32 dt_raw,
-     f32 y, hT written over h0) and a split sequence with the carried state
-     against the whole one; then time each at the model's shape beside its
-     plain version, its bound and its library call;
+     (1,48,96,16), (2,37,100,5), (1,70,130,1), (1,33,64,13),
+     (4,2048,8192,16)} x {f32, bf16} inputs, with and without h0, with
+     contiguous and with the model's strided B / C (2e-4 f32, 2e-2 bf16),
+     plus the model's mixed call (bf16 xi / B / C, f32 dt_raw, f32 y, hT
+     written over h0) and a split sequence with the carried state against
+     the whole one; then time each at the model's shape beside its plain
+     version, its bound and its library call, and K8 at the decode step's
+     shape (B 4, S 1);
  10. main path, the SSM stack: falcon-mamba-7b at full width and depth (64
      layers, weights drawn on the card, bf16 compute; chatglm3's weights
      freed first), ``forward`` and ``loss_fn`` on 4 x 2048 seeded tokens
@@ -100,14 +107,19 @@ REPLACES = {
     "sweep_stats": "src/repro/core/kernels_pallas.py:332",
 }
 FA_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+FA_WGMMA_SOURCE = "src/repro_torch/csrc/flash_attention_sm90.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention.py:30"
 FA_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # tests/test_kernels.py
 #: Phase 6's grid: the model path's shapes and its neighbours, with ragged
-#: edges around the kernel's 64-row tiles.
+#: edges around the FMA kernel's 64-row and the tensor-core kernel's
+#: 128-row tiles.
 FA_BATCH = (1, 2)
 FA_HEADS = ((4, 4), (8, 2), (32, 2))
 FA_HEAD_DIM = (64, 128)
-FA_SEQ = (1, 127, 128, 129, 2048)
+#: bf16 head dims the route sends to the FMA kernel (paligemma and
+#: recurrentgemma have 256), held on the same grid
+FA_FMA_BF16_HEAD_DIM = (32, 80, 256)
+FA_SEQ = (1, 127, 128, 129, 255, 256, 257, 2048)
 #: The model path: chatglm3-6b, B x S tokens in bf16 compute; the decode
 #: step is timed over a cache of DECODE_CACHE positions.
 MODEL_ARCH, MODEL_B, MODEL_S, DECODE_CACHE = "chatglm3-6b", 4, 2048, 2048
@@ -126,7 +138,10 @@ RMS_D = (64, 128, 4096)
 SCAN_SOURCE = "src/repro_torch/csrc/selective_scan.cu"
 SCAN_REPLACES = "src/repro/kernels/selective_scan.py:27"
 SCAN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}  # tol_for, tests/test_kernels.py
+#: ... with N not a multiple of the kernel's 4 lanes a channel and Din not
+#: one of its 64 channels a CTA
 SCAN_SHAPES = ((1, 1, 64, 4), (1, 32, 64, 4), (2, 64, 128, 8), (1, 48, 96, 16),
+               (2, 37, 100, 5), (1, 70, 130, 1), (1, 33, 64, 13),
                (4, 2048, 8192, 16))
 #: The SSM path: falcon-mamba-7b, B x S tokens in bf16 compute; the decode
 #: step is timed after a prefill of SSM_DECODE_AFTER tokens.
@@ -589,56 +604,113 @@ def _fa_check(torch, FA, q, k, v, causal, window, what):
     return float(err.max()) if err.numel() else 0.0
 
 
+def _wants_wgmma(q, k, v) -> bool:
+    """What the wrapper's route gives phase 6's tensors: bf16 at head dim 64
+    or 128 with 16-byte-aligned bases (their strides are multiples of 8
+    elements and the scale is positive)."""
+    return (str(q.dtype) == "torch.bfloat16" and q.shape[-1] in FA_HEAD_DIM
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+
+
+def _fma_kernel_causal(torch, q, k, v):
+    """The FMA K5 kernel, called through the library itself, on tensors the
+    route gives the tensor cores: the earlier design timed on the same bf16
+    inputs, for the record (causal, no window, the default scale)."""
+    from repro_torch.core import _build
+
+    B, H, S, D = q.shape
+    K, T = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    err = _build.lib().repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, K, S, T, D,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        1, 0, 0, 1.0 / math.sqrt(D), 1 if q.dtype == torch.bfloat16 else 0,
+        torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"the FMA K5 kernel's launch failed: cudaError {err}")
+    return out
+
+
 def phase_flash_attention(torch, FA, dev):
     gen = torch.Generator(device=dev).manual_seed(5)
 
     def rand(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    max_err, n = 0.0, 0
-    for dtype in (torch.float32, torch.bfloat16):
+    # max abs err and configurations, by (kernel, dtype)
+    errs, n = {}, {}
+
+    def held(q, k, v, causal, window, what):
+        before = FA.flash_attention.launches_wgmma
+        err = _fa_check(torch, FA, q, k, v, causal, window, what)
+        kernel = "wgmma" if FA.flash_attention.launches_wgmma > before else "fma"
+        want = "wgmma" if _wants_wgmma(q, k, v) else "fma"
+        check(kernel == want, f"K5 {what}: took the {kernel} kernel, not {want}")
+        key = (kernel, str(q.dtype).split(".")[-1])
+        errs[key] = max(errs.get(key, 0.0), err)
+        n[key] = n.get(key, 0) + 1
+
+    grid = [(dtype, D) for dtype in (torch.float32, torch.bfloat16) for D in FA_HEAD_DIM]
+    grid += [(torch.bfloat16, D) for D in FA_FMA_BF16_HEAD_DIM]
+    for dtype, D in grid:
         for B in FA_BATCH:
             for H, K in FA_HEADS:
-                for D in FA_HEAD_DIM:
-                    cases = [(S, S, True, w) for S in FA_SEQ
-                             for w in (None, 64)] + [(127, 300, False, None)]
-                    for S, T, causal, window in cases:
-                        q = rand(B, H, S, D, dtype=dtype)
-                        k, v = rand(B, K, T, D, dtype=dtype), rand(B, K, T, D, dtype=dtype)
-                        what = (f"{dtype} B={B} H={H} K={K} D={D} S={S} T={T} "
-                                f"causal={causal} window={window}")
-                        max_err = max(max_err, _fa_check(torch, FA, q, k, v, causal,
-                                                         window, what))
-                        n += 1
-    # the model's layout: (B, S, H, D) projections as transposed views
+                cases = [(S, S, True, w) for S in FA_SEQ
+                         for w in (None, 64)] + [(127, 300, False, None)]
+                for S, T, causal, window in cases:
+                    q = rand(B, H, S, D, dtype=dtype)
+                    k, v = rand(B, K, T, D, dtype=dtype), rand(B, K, T, D, dtype=dtype)
+                    held(q, k, v, causal, window,
+                         f"{dtype} B={B} H={H} K={K} D={D} S={S} T={T} "
+                         f"causal={causal} window={window}")
+    # the model's layout: (B, S, H, D) projections as transposed views; then
+    # the same one element past a 16-byte boundary, which TMA cannot take
     B, S, H, K, D = MODEL_B, MODEL_S, 32, 2, 128
-    q = rand(B, S, H, D, dtype=torch.bfloat16).transpose(1, 2)
-    k = rand(B, S, K, D, dtype=torch.bfloat16).transpose(1, 2)
-    v = rand(B, S, K, D, dtype=torch.bfloat16).transpose(1, 2)
-    max_err = max(max_err, _fa_check(torch, FA, q, k, v, True, None,
-                                     "model layout (strided views)"))
-    torch.cuda.synchronize()
-    log(f"phase 6: K5 matches its plain version on {n + 1} configurations "
-        f"(f32 at 2e-4, bf16 at 2e-2; max abs err {max_err:.3e})")
 
-    ms = cuda_ms(torch, lambda: FA.flash_attention(q, k, v, causal=True))
-    plain_ms = cuda_ms(torch, lambda: FA.plain_flash_attention(q, k, v, causal=True),
-                       reps=3, rounds=3)
+    def model_layout(heads, offset):
+        flat = rand(B * S * heads * D + offset, dtype=torch.bfloat16)
+        return flat[offset:].view(B, S, heads, D).transpose(1, 2)
+
+    for offset in (1, 0):
+        q, k, v = model_layout(H, offset), model_layout(K, offset), model_layout(K, offset)
+        held(q, k, v, True, None, f"model layout (strided views, base offset {offset})")
+    torch.cuda.synchronize()
+    check(n.get(("wgmma", "float32"), 0) == 0, "the tensor-core kernel took float32")
+    log(f"phase 6: K5 matches its plain version on {sum(n.values())} "
+        f"configurations: the tensor-core kernel took {n[('wgmma', 'bfloat16')]} "
+        f"(bf16, D 64 / 128, at 2e-2; max abs err {errs[('wgmma', 'bfloat16')]:.3e}), "
+        f"the FMA kernel {n[('fma', 'float32')]} in f32 (D 64 / 128, at 2e-4; max abs "
+        f"err {errs[('fma', 'float32')]:.3e}) and {n[('fma', 'bfloat16')]} in bf16 "
+        f"(D {' / '.join(map(str, FA_FMA_BF16_HEAD_DIM))} and the model layout one "
+        f"element off, at 2e-2; max abs err {errs[('fma', 'bfloat16')]:.3e})")
+
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
-    bound_ms, bound_by = attention_bound(B, H, K, S, S, D, True, None, "bfloat16")
-    nbytes, ops = attention_work(B, H, K, S, S, D, True, None, 2)
-    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-               library_ms=library_ms, max_abs_err=max_err)
-    log(json.dumps({"timing": "flash_attention", "B": B, "H": H, "K": K, "S": S,
-                    "T": S, "D": D, "dtype": "bfloat16", "causal": True,
-                    "layout": "(B,S,H,D) strided views", "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "bytes": nbytes, "operations": ops,
-                    "tflops": ops / ms / 1e9, "library_ms": library_ms,
-                    "library": "torch.nn.functional.scaled_dot_product_attention"
-                               "(is_causal=True, enable_gqa=True)"}))
-    return row
+    rows = {}
+    for kernel, dtype in (("wgmma", torch.bfloat16), ("fma", torch.float32)):
+        qd, kd, vd = (t.to(dtype) for t in (q, k, v))   # keeps the strided layout
+        check(_wants_wgmma(qd, kd, vd) == (kernel == "wgmma"),
+              f"the timed {dtype} tensors do not route to the {kernel} kernel")
+        dname = str(dtype).split(".")[-1]
+        ms = cuda_ms(torch, lambda: FA.flash_attention(qd, kd, vd, causal=True))
+        plain_ms = cuda_ms(torch, lambda: FA.plain_flash_attention(qd, kd, vd, causal=True),
+                           reps=3, rounds=3)
+        library_ms = cuda_ms(torch, lambda: sdpa(qd, kd, vd, is_causal=True, enable_gqa=True))
+        bound_ms, bound_by = attention_bound(B, H, K, S, S, D, True, None, dname)
+        nbytes, ops = attention_work(B, H, K, S, S, D, True, None, qd.element_size())
+        rows[kernel] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=library_ms,
+                            max_abs_err=max(e for (kn, _), e in errs.items() if kn == kernel))
+        extra = {}
+        if kernel == "wgmma":   # the earlier design on the same tensors, for the record
+            extra["fma_kernel_ms"] = cuda_ms(torch, lambda: _fma_kernel_causal(torch, qd, kd, vd))
+        log(json.dumps({"timing": f"flash_attention_{kernel}", "B": B, "H": H, "K": K,
+                        "S": S, "T": S, "D": D, "dtype": dname, "causal": True,
+                        "layout": "(B,S,H,D) strided views", "ms": ms, **extra,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "bytes": nbytes, "operations": ops,
+                        "tflops": ops / ms / 1e9, "library_ms": library_ms,
+                        "library": "torch.nn.functional.scaled_dot_product_attention"
+                                   "(is_causal=True, enable_gqa=True)"}))
+    return rows
 
 
 # --------------------------------------------------------------------------- #
@@ -665,7 +737,7 @@ def device_split(torch, fn):
         if evt.device_type != DeviceType.CUDA:
             continue
         name = evt.name.lower()
-        if "flash_attention_k" in name:
+        if "flash_attention" in name:   # both K5 kernels
             group = "K5"
         elif "rmsnorm_k" in name:
             group = "K6/K7"
@@ -682,6 +754,26 @@ def device_split(torch, fn):
     busy = sum(groups.values())
     return dict(wall_ms=wall_ms, device_busy_ms=busy, device_events=n,
                 idle_share=(1 - busy / wall_ms) if n else None, busy_ms_by_group=groups)
+
+
+def device_us(torch, fn, name, n=50):
+    """Median device time, in microseconds, of the kernels whose name holds
+    ``name`` over ``n`` calls of ``fn`` under ``torch.profiler``: for a
+    launch too short for CUDA events around the host's calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name]
+    # the profiler may drop an event at the edge of its window
+    check(len(times) >= n // 2, f"the profiler saw {len(times)} of {n} {name} launches")
+    return statistics.median(times)
 
 
 def _tokens(torch, dev, B, S, vocab, seed):
@@ -703,29 +795,31 @@ def phase_model(torch, FA, T, C, dev):
     batch = _tokens(torch, dev, MODEL_B, MODEL_S, cfg.vocab_size, seed=1)
     k5 = cfg.replace(attn_impl="pallas")
 
-    FA.flash_attention.launches = 0
+    FA.reset_launch_counts()
     t0 = time.perf_counter()
     hidden, _ = T.forward(model, k5, batch)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    fwd_launches = FA.flash_attention.launches
-    FA.flash_attention.launches = 0
+    fwd_launches = FA.flash_attention.launches_wgmma
     loss, metrics = T.loss_fn(model, k5, batch)
     torch.cuda.synchronize()
-    loss_launches = FA.flash_attention.launches
+    loss_launches = FA.flash_attention.launches_wgmma - fwd_launches
+    fma_launches = FA.flash_attention.launches_fma
     log(f"phase 7: forward {tuple(hidden.shape)} {hidden.dtype} in {first_s:.3f} s "
         f"(first call), loss {float(loss):.5f}, accuracy "
-        f"{float(metrics['accuracy']):.5f}; K5 launches {fwd_launches} (forward), "
-        f"{loss_launches} (loss_fn)")
-    check(fwd_launches == cfg.n_layers and loss_launches == cfg.n_layers,
-          f"K5 launched {fwd_launches} / {loss_launches} times, not "
-          f"{cfg.n_layers} per forward")
+        f"{float(metrics['accuracy']):.5f}; K5 tensor-core launches {fwd_launches} "
+        f"(forward), {loss_launches} (loss_fn), FMA launches {fma_launches}")
+    check(fwd_launches == cfg.n_layers and loss_launches == cfg.n_layers
+          and fma_launches == 0,
+          f"K5's tensor-core kernel launched {fwd_launches} / {loss_launches} times "
+          f"and the FMA kernel {fma_launches}, not {cfg.n_layers} / {cfg.n_layers} "
+          "and 0")
     check(hidden.shape == (MODEL_B, MODEL_S, cfg.d_model)
           and hidden.dtype == torch.bfloat16, f"hidden {hidden.shape} {hidden.dtype}")
     check(bool(torch.isfinite(hidden).all()) and math.isfinite(float(loss)),
           "non-finite forward")
 
-    FA.flash_attention.launches = 0
+    FA.reset_launch_counts()
     h_plain, _ = T.forward(model, cfg, batch)
     loss_plain, _ = T.loss_fn(model, cfg, batch)
     torch.cuda.synchronize()
@@ -736,11 +830,13 @@ def phase_model(torch, FA, T, C, dev):
     # forward: the float32-compute forward with the plain attention is the
     # yardstick of how far any bf16 path lies from the exact one.
     ref32, _ = T.forward(model, cfg.replace(compute_dtype="float32"), batch)
-    FA.flash_attention.launches = 0
+    FA.reset_launch_counts()
     k5_32, _ = T.forward(model, cfg.replace(compute_dtype="float32",
                                             attn_impl="pallas"), batch)
     torch.cuda.synchronize()
-    check(FA.flash_attention.launches == cfg.n_layers, "f32 forward missed K5")
+    f32_launches = FA.flash_attention.launches_fma
+    check(f32_launches == cfg.n_layers and FA.flash_attention.launches_wgmma == 0,
+          "the f32 forward did not run all its K5 launches on the FMA kernel")
 
     def rel(a, b):
         return float((a.float() - b.float()).abs().max() / b.float().abs().max())
@@ -780,7 +876,7 @@ def phase_model(torch, FA, T, C, dev):
                     "plain_attention_tokens_per_s": tokens / fwd_plain_ms * 1e3}))
     log(json.dumps({"profile": "forward", "attn_impl": "pallas",
                     **device_split(torch, lambda: T.forward(model, k5, batch))}))
-    return model, cfg, fwd_launches + loss_launches
+    return model, cfg, {"wgmma": fwd_launches + loss_launches, "fma": f32_launches}
 
 
 def phase_serving(torch, FA, T, E, model, cfg, dev):
@@ -807,7 +903,7 @@ def phase_serving(torch, FA, T, E, model, cfg, dev):
         return [E.Request(rid=i, prompt=[(13 * i + j) % cfg.vocab_size for j in range(4)],
                           max_new_tokens=8) for i in range(8)]
 
-    FA.flash_attention.launches = 0
+    FA.reset_launch_counts()
     eng = E.BatchedEngine(model, cfg, slots=4, max_len=64, device=dev)
     reqs = requests()
     torch.cuda.synchronize()
@@ -1030,6 +1126,29 @@ def phase_ssm_kernels(torch, RN, SS, dev):
                     "f32_ms": ops / F32_OPS_PER_S * 1e3,
                     "sfu_ms": sfu / SFU_OPS_PER_S * 1e3,
                     "library_ms": None, "library": "none: no PyTorch call scans"}))
+
+    # the decode step's call: S 1, the state written in place
+    xi1 = rand(B, 1, Din, scale=0.5).bfloat16()
+    dt1 = rand(B, 1, Din, scale=0.5, shift=-1.0)
+    bm1, cm1 = torch.split(rand(B, 1, Rk + 2 * N, scale=0.3).bfloat16(), [Rk, N, N], dim=-1)[1:]
+    state = rand(B, Din, N, scale=0.5)
+    step = lambda: SS.selective_scan(xi1, dt1, bm1, cm1, A, state, y_dtype=torch.float32,
+                                     out_state=state)
+    ms = cuda_ms(torch, step)
+    kernel_us = device_us(torch, step, "selective_scan_k")
+    plain_ms = cuda_ms(torch, lambda: SS.plain_selective_scan(
+        xi1, dt1, bm1, cm1, A, state, y_dtype=torch.float32))
+    bound_ms, bound_by = scan_bound(B, 1, Din, N, 2, 4, 4, True)
+    rows["selective_scan_decode"] = dict(ms=ms, kernel_us=kernel_us, plain_ms=plain_ms,
+                                         bound_ms=bound_ms, bound_by=bound_by)
+    log(json.dumps({"timing": "selective_scan_decode", "B": B, "S": 1, "Din": Din, "N": N,
+                    "inputs": "as above, h0 given and hT written over it",
+                    "ms": ms, "kernel_device_us": kernel_us,
+                    "note": "ms is CUDA events around back-to-back calls, which the "
+                            "host's per-call cost sets at this size; kernel_device_us "
+                            "is the launch's own time from torch.profiler",
+                    "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": None}))
     return rows
 
 
@@ -1259,6 +1378,21 @@ def main() -> int:
     for line in _build.build_info.get("log", "").splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run([cuobjdump, "-sass", _build.build_info["path"]],
+                              capture_output=True, text=True, timeout=300).stdout
+        hgmma, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+            elif fn and "flash_attention_sm90_k" in fn and "HGMMA" in line:
+                hgmma[fn] = hgmma.get(fn, 0) + 1
+        log(f"phase 1: HGMMA instructions in the SASS of the tensor-core K5 kernel: "
+            f"{sorted(hgmma.values())} in its {len(hgmma)} instantiations (D 64, 128)")
+        check(len(hgmma) == 2, "the tensor-core K5 kernel's SASS has no HGMMA")
+    else:
+        log("phase 1: cuobjdump not found; the HGMMA check is left out")
 
     errs = phase_kernels(torch, core, KC, dev)
     p3 = phase_run_sweep(torch, core, KC, dev)
@@ -1301,12 +1435,15 @@ def main() -> int:
             plain_ms=rows[name]["plain_ms"], bound_ms=rows[name]["bound_ms"],
             bound_by=rows[name]["bound_by"], library_ms=None))
         check(kernels[-1]["launches"] > 0, f"{name} never launched")
-    kernels.append(dict(
-        name="flash_attention", route="cuda", source=FA_SOURCE,
-        replaces=FA_REPLACES, launches=fa_launches,
-        max_abs_err=fa["max_abs_err"], ms=fa["ms"], plain_ms=fa["plain_ms"],
-        bound_ms=fa["bound_ms"], bound_by=fa["bound_by"],
-        library_ms=fa["library_ms"]))
+    for kernel, source in (("wgmma", FA_WGMMA_SOURCE), ("fma", FA_SOURCE)):
+        row = fa[kernel]
+        kernels.append(dict(
+            name=f"flash_attention_{kernel}", route="cuda", source=source,
+            replaces=FA_REPLACES, launches=fa_launches[kernel],
+            max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"]))
+        check(kernels[-1]["launches"] > 0, f"flash_attention_{kernel} never launched")
     for name in ("rmsnorm", "rmsnorm_residual", "selective_scan"):
         row = ssm_rows[name]
         kernels.append(dict(

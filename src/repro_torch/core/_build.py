@@ -2,7 +2,8 @@
 
 ``nvcc`` compiles each source under ``src/repro_torch/csrc`` (the sweep
 kernels K1-K4 in ``congruence.cu``, flash attention K5 in
-``flash_attention.cu``, RMSNorm K6 and fused residual RMSNorm K7 in
+``flash_attention.cu`` (float32 FMA) and ``flash_attention_sm90.cu``
+(bf16 wgmma + TMA), RMSNorm K6 and fused residual RMSNorm K7 in
 ``rmsnorm.cu``, the selective scan K8 in ``selective_scan.cu``) into an
 object, all sources at once in parallel,
 and links them into one shared library with a plain C interface, loaded
@@ -26,11 +27,14 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = (CSRC / "congruence.cu", CSRC / "flash_attention.cu",
-           CSRC / "rmsnorm.cu", CSRC / "selective_scan.cu")
+           CSRC / "flash_attention_sm90.cu", CSRC / "rmsnorm.cu",
+           CSRC / "selective_scan.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 #: No --use_fast_math: Eq. 1 needs IEEE division and exact comparisons, the
-#: attention softmax uses expf and IEEE division, and the scan expf/log1pf.
+#: FMA attention kernel uses expf and IEEE division, the scan's softplus
+#: expf/log1pf.  (The wgmma attention kernel and the scan write their 2^x as
+#: ex2.approx.ftz themselves.)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,6 +53,10 @@ _SIGNATURES = {
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                               _I, _I, _I, _F, _I, _P],
+    # the same, bf16 only, without the dtype code
+    "repro_flash_attention_sm90": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                                   _L, _I, _I, _I, _F, _P],
     # x, scale, out; rows, d, eps, x dtype, scale dtype, vec, stream
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
     # x, residual, scale, out, h; rows, d, eps, x dtype, scale dtype, vec, stream

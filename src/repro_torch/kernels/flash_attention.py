@@ -1,20 +1,31 @@
 """K5: flash attention on a hand-written Hopper kernel.
 
-``flash_attention`` launches ``src/repro_torch/csrc/flash_attention.cu``
-(built at first use by ``repro_torch.core._build``), which replaces the JAX
+``flash_attention`` launches one of two hand-written kernels (built at
+first use by ``repro_torch.core._build``), each of which replaces the JAX
 package's Pallas TPU kernel ``repro/kernels/flash_attention.py:_attn_kernel``.
-It computes what that kernel computes -- softmax attention with GQA,
+Both compute what that kernel computes -- softmax attention with GQA,
 causal and sliding-window masks, (m, l, acc) kept in float32 and rows with
-no live key written as 0 -- without its block-size constraint: the kernel
-masks the ragged S, T and D edges itself.
+no live key written as 0 -- without its block-size constraint: the kernels
+mask the ragged S and T edges themselves.
 
-A CUDA tensor goes to the kernel (float32 or bfloat16, unit stride along D,
-head dim at most 256; anything else raises); a CPU tensor takes the plain
-version, ``plain_flash_attention`` (``repro_torch.kernels.ref``).  The
-kernel reads q, k and v through their (batch, head, position) strides, and
-the output keeps q's layout: a ``(B, S, H, D)`` tensor handed over as its
-``transpose(1, 2)`` view comes back the same way, with no copy on either
-side.  Kernel launches are counted in ``flash_attention.launches``.
+* ``"wgmma"``, ``src/repro_torch/csrc/flash_attention_sm90.cu``: bf16 on the
+  tensor cores (wgmma, K / V streamed by TMA), for bfloat16 q, k, v with a
+  head dim of 64 or 128, a positive scale, 16-byte-aligned bases and strides
+  that are multiples of 8 elements.  It rounds P to bf16 before P V.
+* ``"fma"``, ``src/repro_torch/csrc/flash_attention.cu``: float32 FMAs, for
+  everything else the kernels take: float32 (tensor cores would round it to
+  TF32), other head dims up to 256, unaligned bases or strides, a scale
+  that is not positive.
+
+``_route`` picks one from the inputs before the launch; a CUDA tensor never
+falls back to the plain version, and what neither kernel takes (another
+dtype, a non-unit stride along D, a head dim over 256) raises.  A CPU tensor
+takes the plain version, ``plain_flash_attention``
+(``repro_torch.kernels.ref``).  The kernels read q, k and v through their
+(batch, head, position) strides, and the output keeps q's layout: a
+``(B, S, H, D)`` tensor handed over as its ``transpose(1, 2)`` view comes
+back the same way, with no copy on either side.  ``flash_attention.launches``
+counts all launches, ``launches_wgmma`` and ``launches_fma`` each kernel's.
 """
 
 from __future__ import annotations
@@ -27,6 +38,8 @@ import torch
 from repro_torch.kernels.ref import flash_attention_ref as plain_flash_attention
 
 MAX_HEAD_DIM = 256
+#: Head dims the tensor-core kernel is built for.
+WGMMA_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _WINDOW_LIMIT = 2 ** 30   # |window| beyond any sequence the kernel indexes
 
@@ -72,6 +85,26 @@ def _on_kernel(q, k, v) -> bool:
     return True
 
 
+def _route(dtype: torch.dtype, head_dim: int, kv_len: int, scale: float,
+           data_ptrs, strides) -> str:
+    """Which kernel takes a CUDA call: ``"wgmma"`` for bf16 with a head dim of
+    64 or 128, keys to attend to, a positive scale (its softmax takes the
+    row max before scaling), 16-byte-aligned ``data_ptrs`` and every
+    (batch, head, position) stride of a dim longer than 1 (``strides``) a
+    positive multiple of 8 elements, as TMA needs; ``"fma"`` otherwise."""
+    if (dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS and kv_len > 0
+            and scale > 0 and all(p % 16 == 0 for p in data_ptrs)
+            and all(s > 0 and s % 8 == 0 for s in strides)):
+        return "wgmma"
+    return "fma"
+
+
+def _tma_strides(*tensors: torch.Tensor):
+    """The (batch, head, position) strides of each tensor's dims longer
+    than 1 (a dim of extent 1 is never stepped along)."""
+    return [s for t in tensors for n, s in zip(t.shape[:3], t.stride()[:3]) if n > 1]
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
@@ -83,6 +116,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not _on_kernel(q, k, v):
         return plain_flash_attention(q, k, v, causal=causal, window=window,
                                      scale=scale)
+    return _launch(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def _launch(q, k, v, *, causal, window, scale) -> torch.Tensor:
+    """Launch the kernel ``_route`` picks on CUDA tensors that passed
+    ``_on_kernel``."""
     B, H, S, D = q.shape
     K, T = k.shape[1], k.shape[2]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
@@ -91,20 +130,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     has_window = window is not None
     w = max(-_WINDOW_LIMIT, min(_WINDOW_LIMIT, int(window))) if has_window else 0
+    route = _route(q.dtype, D, T, scale, [t.data_ptr() for t in (q, k, v, out)],
+                   _tma_strides(q, k, v, out))
     from repro_torch.core import _build
 
     lib = _build.lib()
-    with torch.cuda.device(q.device):
-        err = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, H, K, S, T, D, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *out.stride()[:3], int(bool(causal)),
-            int(has_window), w, scale, _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            int(has_window), w, scale)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if route == "wgmma":
+            err = lib.repro_flash_attention_sm90(*args, stream)
+        else:
+            err = lib.repro_flash_attention(*args, _DTYPE_CODES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"flash-attention kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"flash-attention kernel ({route}) launch failed: "
+                           f"cudaError {err}")
     flash_attention.launches += 1
+    if route == "wgmma":
+        flash_attention.launches_wgmma += 1
+    else:
+        flash_attention.launches_fma += 1
     return out
 
 
-flash_attention.launches = 0
+def reset_launch_counts() -> None:
+    flash_attention.launches = 0
+    flash_attention.launches_wgmma = flash_attention.launches_fma = 0
+
+
+reset_launch_counts()

@@ -6,7 +6,8 @@ package's Pallas TPU kernel ``repro/kernels/selective_scan.py:_scan_kernel``.
 It computes what that kernel computes -- ``dt = softplus(dt_raw)``,
 ``h = exp(dt * A) * h + (dt * xi) * B``, ``y = sum_n h * C``, in float32,
 carrying ``h0`` to ``hT`` -- without its ``chunk`` / ``d_block``
-divisibility rules: one thread walks a channel's whole sequence.
+divisibility rules: four lanes share a channel's states and walk its whole
+sequence, round by round through shared memory.
 
 A CUDA tensor goes to the kernel: ``xi``, ``dt_raw``, ``Bm`` and ``Cm``
 float32 or bfloat16 each, with a unit stride along their last dim (the

@@ -73,6 +73,7 @@ def test_kernel_build_is_keyed_on_the_source_and_needs_nvcc():
     assert path.name.startswith("librepro_torch_") and path.suffix == ".so"
     assert {s.name for s in _build.SOURCES} == {"congruence.cu",
                                                 "flash_attention.cu",
+                                                "flash_attention_sm90.cu",
                                                 "rmsnorm.cu",
                                                 "selective_scan.cu"}
     assert all(s.exists() for s in _build.SOURCES)

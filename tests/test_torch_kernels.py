@@ -4,7 +4,9 @@ package on the same NumPy-seeded inputs.
 Pinned tolerances (those of ``tests/test_kernels.py``), absolute and
 relative:
 
-  * K5 flash attention: 2e-4 in float32, 2e-2 in bfloat16;
+  * K5 flash attention: 2e-4 in float32, 2e-2 in bfloat16 -- the bf16
+    tolerance also for a CPU emulation of the tensor-core kernel's
+    arithmetic (P rounded to bf16 before P V);
   * K6 RMSNorm and K7 fused residual RMSNorm: 1e-5 in float32 (the pin of
     ``test_rmsnorm_residual``), 2e-2 in bfloat16;
   * K8 selective scan: 2e-4 in float32, 2e-2 in bfloat16 (``tol_for``),
@@ -21,6 +23,7 @@ also run where JAX is not installed (``python -m pytest -m cuda
 tests/test_torch_kernels.py`` on the machine with the card).
 """
 
+import contextlib
 import math
 
 import numpy as np
@@ -151,6 +154,172 @@ def test_wrapper_rejects_bad_inputs():
 
 
 # --------------------------------------------------------------------------- #
+# The tensor-core kernel (flash_attention_sm90.cu): its arithmetic and route
+# --------------------------------------------------------------------------- #
+
+WGMMA_TILE = 128   # query rows per CTA and keys per tile of the kernel
+#: (B, H, K, S, T, D) around the kernel's 128-row tile, at its two head dims
+WGMMA_EDGES = [(1, 4, 2, n, n, d) for n in (127, 128, 129, 255) for d in (64, 128)]
+
+
+def emulate_wgmma_attention(q, k, v, *, causal=True, window=None, scale=None):
+    """The tensor-core kernel's arithmetic step for step in plain torch (a
+    model for these tests, on no path of the port): bf16 q, k products
+    summed in float32; an online softmax in float32 over 128-key tiles --
+    only the tiles the masks leave live -- in log2 units with 2^x; P rounded
+    to bf16 before a float32 P V; one division by l at the end, rows with no
+    live key 0."""
+    B, H, S, D = q.shape
+    K, T = k.shape[1], k.shape[2]
+    c = (scale if scale is not None else 1.0 / math.sqrt(D)) * math.log2(math.e)
+    qf = q.bfloat16().float()
+    kf, vf = (t.bfloat16().float().repeat_interleave(H // K, dim=1) for t in (k, v))
+    out = torch.zeros(B, H, S, D)
+    for q0 in range(0, S, WGMMA_TILE):
+        rows = torch.arange(q0, min(q0 + WGMMA_TILE, S))[:, None]
+        kv_hi = min(T, q0 + WGMMA_TILE, S) if causal else T
+        kv_lo = min(T, max(0, q0 - window + 1)) if window is not None else 0
+        m = torch.full((B, H, len(rows), 1), -math.inf)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(B, H, len(rows), D)
+        for k0 in range(kv_lo // WGMMA_TILE * WGMMA_TILE, kv_hi, WGMMA_TILE):
+            cols = torch.arange(k0, min(k0 + WGMMA_TILE, T))[None, :]
+            s = qf[:, :, rows[:, 0]] @ kf[:, :, cols[0]].transpose(-1, -2)
+            live = torch.ones(len(rows), cols.shape[1], dtype=torch.bool)
+            if causal:
+                live &= cols <= rows
+            if window is not None:
+                live &= rows - cols < window
+            s = s.masked_fill(~live, -math.inf)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+            mu = m_new.masked_fill(m_new == -math.inf, 0.0)
+            alpha = torch.exp2(m - mu)
+            p = torch.exp2(s * c - mu)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + p.bfloat16().float() @ vf[:, :, cols[0]]
+            m = m_new
+        out[:, :, rows[:, 0]] = torch.where(l == 0, 0.0, acc / l)
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("causal,window", MASKS,
+                         ids=["causal", "full", "causal-window64"])
+@pytest.mark.parametrize("shape", FA_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_tensor_core_rounding_fits_the_bf16_tolerance(jx, shape, causal, window):
+    """P rounded to bf16 before P V stays within 2e-2 of the plain version
+    and of the Pallas kernel, on the bf16 inputs both are held to."""
+    arrays = qkv(shape, seed=sum(shape))
+    tq, tk, tv = (torch.as_tensor(a).bfloat16() for a in arrays)
+    got = emulate_wgmma_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    want = FA.plain_flash_attention(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(to_np(got), to_np(want), atol=2e-2, rtol=2e-2)
+    B, H, K, S, T, D = shape
+    if causal and S != T:
+        return   # the Pallas kernel's tests leave this layout out too
+    jq, jk, jv = (jx.np.asarray(a, jx.np.bfloat16) for a in arrays)
+    pallas = jx.ops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                    block_q=_block(S), block_kv=_block(T),
+                                    interpret=True)
+    np.testing.assert_allclose(to_np(got), to_np(pallas), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("window", [None, 64], ids=["causal", "causal-window64"])
+@pytest.mark.parametrize("shape", WGMMA_EDGES, ids=lambda s: "x".join(map(str, s)))
+def test_tensor_core_rounding_at_the_tile_edges(jx, shape, window):
+    arrays = qkv(shape, seed=sum(shape))
+    tq, tk, tv = (torch.as_tensor(a).bfloat16() for a in arrays)
+    got = emulate_wgmma_attention(tq, tk, tv, causal=True, window=window)
+    want = FA.plain_flash_attention(tq, tk, tv, causal=True, window=window)
+    np.testing.assert_allclose(to_np(got), to_np(want), atol=2e-2, rtol=2e-2)
+    oracle = jx.ref.flash_attention_ref(*(jx.np.asarray(a, jx.np.bfloat16) for a in arrays),
+                                        causal=True, window=window)
+    np.testing.assert_allclose(to_np(got), to_np(oracle), atol=2e-2, rtol=2e-2)
+
+
+ALIGNED = [0x7f0000000000 + 0x100000 * i for i in range(4)]
+#: (batch, head, position) strides of q, k, v, out in the model's layout,
+#: chatglm3-6b (H 32, K 2, D 128, S 2048), dims of extent 1 left out
+MODEL_STRIDES = [2048 * 32 * 128, 128, 32 * 128] * 2 + [2048 * 2 * 128, 128, 2 * 128] * 2
+
+
+@pytest.mark.parametrize("dtype,head_dim,kv_len,scale,ptrs,strides,want", [
+    (torch.bfloat16, 128, 2048, 0.088, ALIGNED, MODEL_STRIDES, "wgmma"),
+    (torch.bfloat16, 64, 1, 0.125, ALIGNED, [8, 64 * 8, 64], "wgmma"),
+    (torch.float32, 128, 2048, 0.088, ALIGNED, MODEL_STRIDES, "fma"),
+    (torch.bfloat16, 80, 2048, 0.1, ALIGNED, MODEL_STRIDES, "fma"),
+    (torch.bfloat16, 256, 2048, 0.06, ALIGNED, MODEL_STRIDES, "fma"),
+    (torch.bfloat16, 128, 2048, 0.088, ALIGNED[:3] + [ALIGNED[3] + 2], MODEL_STRIDES, "fma"),
+    (torch.bfloat16, 128, 2048, 0.088, ALIGNED, MODEL_STRIDES[:-1] + [129], "fma"),
+    (torch.bfloat16, 128, 0, 0.088, ALIGNED, MODEL_STRIDES, "fma"),
+    (torch.bfloat16, 128, 2048, -0.088, ALIGNED, MODEL_STRIDES, "fma"),
+], ids=["bf16-d128-model", "bf16-d64", "f32", "d80", "d256", "base-off-by-2-bytes",
+        "odd-stride", "no-keys", "negative-scale"])
+def test_route_picks_the_tensor_cores_only_where_they_apply(dtype, head_dim, kv_len,
+                                                            scale, ptrs, strides, want):
+    assert FA._route(dtype, head_dim, kv_len, scale, ptrs, strides) == want
+
+
+def test_route_never_picks_the_plain_version():
+    routes = {FA._route(dtype, d, t, sc, [ALIGNED[0] + off] * 4, [st] * 12)
+              for dtype in (torch.float32, torch.bfloat16, torch.float16)
+              for d in (1, 16, 64, 100, 128, 256) for t in (0, 1, 300)
+              for sc in (-1.0, 0.0, 0.1) for off in (0, 2, 8, 16) for st in (1, 8, 64, 130)}
+    assert routes == {"wgmma", "fma"}
+
+
+def test_tma_strides_leave_out_dims_of_extent_one():
+    q = torch.zeros(1, 4, 1, 128).bfloat16()
+    k = torch.zeros(2, 1, 9, 128).bfloat16().transpose(1, 2).contiguous().transpose(1, 2)
+    assert FA._tma_strides(q, k) == [128, 9 * 128, 128]
+
+
+class _FakeLib:
+    """Stands in for the built kernel library: records which entry point
+    the wrapper called and returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def repro_flash_attention_sm90(self, *args):
+        self.calls.append(("wgmma", args))
+        return 0
+
+    def repro_flash_attention(self, *args):
+        self.calls.append(("fma", args))
+        return 0
+
+
+@pytest.mark.parametrize("dtype,D,want", [(torch.bfloat16, 128, "wgmma"),
+                                          (torch.bfloat16, 64, "wgmma"),
+                                          (torch.bfloat16, 32, "fma"),
+                                          (torch.float32, 128, "fma")])
+def test_wrapper_launches_the_routed_kernel_and_counts_it(monkeypatch, dtype, D, want):
+    """The dispatch of a CUDA call, with the card and the library stood in
+    for: the routed entry point is called once, with the strides and no
+    dtype code for the tensor-core kernel, and its own counter moves."""
+    from repro_torch.core import _build
+
+    fake = _FakeLib()
+    monkeypatch.setattr(FA, "_on_kernel", lambda q, k, v: True)
+    monkeypatch.setattr(_build, "lib", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: type("S", (), {"cuda_stream": 7})())
+    q, k, v = (torch.as_tensor(a).to(dtype) for a in qkv((2, 4, 2, 16, 16, D), seed=6))
+    FA.reset_launch_counts()
+    FA.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, window=8)
+    assert [name for name, _ in fake.calls] == [want]
+    args = fake.calls[0][1]
+    assert args[4:10] == (2, 4, 2, 16, 16, D) and args[-1] == 7
+    assert len(args) == (27 if want == "wgmma" else 28)
+    assert FA.flash_attention.launches == 1
+    assert (FA.flash_attention.launches_wgmma, FA.flash_attention.launches_fma) == \
+        ((1, 0) if want == "wgmma" else (0, 1))
+    FA.reset_launch_counts()
+
+
+# --------------------------------------------------------------------------- #
 # Kernel launches (need the card)
 # --------------------------------------------------------------------------- #
 
@@ -166,19 +335,51 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("shape", FA_SHAPES + [(2, 32, 2, 129, 129, 128),
-                                               (1, 4, 4, 1, 1, 64)],
+                                               (1, 4, 4, 1, 1, 64),
+                                               (1, 4, 2, 255, 255, 128),
+                                               (1, 4, 2, 256, 256, 64),
+                                               (1, 4, 2, 257, 257, 128),
+                                               (1, 4, 2, 257, 257, 256),
+                                               (2, 8, 2, 129, 129, 80)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_kernel_matches_plain_on_card(cuda_device, shape, dtype):
     tdt, tol = DTYPES[dtype]
     q, k, v = (torch.as_tensor(a).to(cuda_device, tdt)
                for a in qkv(shape, seed=sum(shape)))
+    # bf16 at head dim 64 / 128 takes the tensor-core kernel, the rest FMA
+    counter = ("launches_wgmma" if tdt == torch.bfloat16 and shape[-1] in (64, 128)
+               else "launches_fma")
     for causal, window in MASKS:
         before = FA.flash_attention.launches
+        kernel_before = getattr(FA.flash_attention, counter)
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
         assert FA.flash_attention.launches == before + 1
+        assert getattr(FA.flash_attention, counter) == kernel_before + 1
         want = FA.plain_flash_attention(q, k, v, causal=causal, window=window)
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4, 2, 255, 255, 128), (2, 8, 2, 129, 129, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_bf16_one_element_off_alignment_takes_the_fma_kernel_on_card(cuda_device, shape):
+    """bf16 tensors whose bases lie one element past a 16-byte boundary,
+    which TMA cannot address, launch the FMA kernel and match the plain
+    version at 2e-2."""
+    def on_card(a):
+        flat = torch.zeros(a.size + 1, device=cuda_device, dtype=torch.bfloat16)
+        flat[1:] = torch.as_tensor(a.ravel()).to(cuda_device, torch.bfloat16)
+        return flat[1:].view(a.shape)
+
+    q, k, v = (on_card(a) for a in qkv(shape, seed=sum(shape)))
+    for causal, window in MASKS:
+        FA.reset_launch_counts()
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        assert (FA.flash_attention.launches_wgmma, FA.flash_attention.launches_fma) == (0, 1)
+        want = FA.plain_flash_attention(q, k, v, causal=causal, window=window)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    FA.reset_launch_counts()
 
 
 @pytest.mark.cuda
@@ -210,6 +411,32 @@ def test_pallas_forward_runs_k5_once_per_layer_on_card(cuda_device):
     assert FA.flash_attention.launches == before + cfg.n_layers
     h_plain, _ = PT.forward(model, cfg, batch)
     torch.testing.assert_close(h_k5, h_plain, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_bf16_chatglm_shaped_forward_runs_k5_on_the_tensor_cores_on_card(cuda_device):
+    """chatglm3-6b's head dim (128) and GQA in bf16 compute: every K5
+    launch takes the tensor-core kernel, and the hidden state stays as
+    close to the plain attention's as bf16 allows (phase 7's limit)."""
+    cfg = PC.get_config("chatglm3-6b", smoke=True).replace(head_dim=128)
+    assert cfg.compute_dtype == "bfloat16"
+    model = PT.init_model(cfg, torch.Generator(cuda_device).manual_seed(0),
+                          device=cuda_device)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 300)),
+                           device=cuda_device)
+    batch = {"tokens": toks, "labels": toks}
+    FA.reset_launch_counts()
+    h_k5, _ = PT.forward(model, cfg.replace(attn_impl="pallas"), batch)
+    assert FA.flash_attention.launches_wgmma == cfg.n_layers
+    assert FA.flash_attention.launches_fma == 0
+    h_plain, _ = PT.forward(model, cfg, batch)
+    h_f32, _ = PT.forward(model, cfg.replace(compute_dtype="float32"), batch)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+    assert rel(h_k5, h_plain) <= max(2e-2, 1.5 * rel(h_plain, h_f32))
+    FA.reset_launch_counts()
 
 
 # --------------------------------------------------------------------------- #
@@ -437,7 +664,11 @@ def test_rmsnorm_kernels_match_plain_on_card(cuda_device, shape, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_h0", [False, True], ids=["h0-zero", "h0"])
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("shape", [s[:4] for s in SCAN_SHAPES] + [(1, 1, 64, 4), (3, 17, 200, 16)],
+@pytest.mark.parametrize("shape", [s[:4] for s in SCAN_SHAPES] + [
+    (1, 1, 64, 4), (3, 17, 200, 16),
+    # N not a multiple of the 4 lanes of a channel; Din not one of the 64
+    # channels of a CTA
+    (2, 37, 100, 5), (1, 70, 130, 1), (1, 33, 64, 13)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_scan_kernel_matches_plain_on_card(cuda_device, shape, dtype, with_h0):
     tdt, tol = DTYPES[dtype]
