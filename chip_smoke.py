@@ -7,12 +7,19 @@ Phases (any failure raises and the exit code is not 0):
 
   1. print the card (``nvidia-smi``), build the kernels from
      ``src/repro_torch/csrc`` with nvcc for sm_90a (one nvcc per source,
-     all at once), log ptxas's registers and spills and check, where
-     ``cuobjdump`` exists, that the tensor-core K5 kernel's SASS has HGMMA;
+     all at once), log ptxas's registers and spills and, where
+     ``cuobjdump`` exists, check that the tensor-core K5 kernel's SASS has
+     HGMMA and count the SASS instructions of K1's and K4's per-cell loops
+     (written to ``build/congruence.sass``);
   2. hold each sweep kernel (K1 congruence, K2 step time, K3 default beta,
      K4 sweep statistics) against its plain PyTorch version on the card,
-     at A in {1, 3, 64} x V in {1, 127, 128, 129, 513, 100003}, both timing
-     models, clamp on and off, with degenerate cells;
+     at A in {1, 3, 64} x V in {1, 127, 128, 129, 513, 100003} and at the
+     edges of K1's and K4's tiles (``EDGE_SHAPES``: A up to 1025, V up to
+     62501), both timing models, clamp on and off, with degenerate cells;
+     K4's argmins and minima must equal the reduction of K1's own
+     aggregate exactly; then K4 on a 64 x 62501 shard with NaN aggregates
+     (NaN columns, and NaN rows) and with every variant alike, where the
+     argmin must be the first NaN, or index 0, across all blocks;
   3. main path, ``run_sweep``: gen:64 x (100000 + 3 named) variants on the
      card (plus ``batched_step_time`` and ``evaluate`` on the same suite),
      checked against the plain float32 and float64 versions;
@@ -20,7 +27,11 @@ Phases (any failure raises and the exit code is not 0):
      shards through K4, checked against the plain float32 version, and a
      checkpoint kill/resume round trip;
   5. timings by CUDA events at the phase-3/4 shapes, beside each kernel's
-     bound, and the end-to-end split;
+     bound, with each device kernel's own time (``torch.profiler``), the
+     wrapper's host time a call, K1's and K4's instruction bound (SASS
+     instructions a cell x cells over the card's issue rate) and a
+     ``fill_`` of K1's output as the ceiling of its stores; and the
+     end-to-end split;
   6. hold both K5 (flash attention) kernels against the plain version on
      the card: B in {1, 2} x (H, K) in {(4, 4), (8, 2), (32, 2)} x D in
      {64, 128} x S = T in {1, 127, 128, 129, 255, 256, 257, 2048} x causal
@@ -99,6 +110,18 @@ MEAN_RTOL = 1e-5     # K4 per-variant means
 COND_LIMIT = 1e3
 SHAPES_A = (1, 3, 64)
 SHAPES_V = (1, 127, 128, 129, 513, 100_003)
+#: Phase 2's (A, V) pairs beside that grid: the ragged edges of the sweep
+#: kernels' tiles (K1: 4 apps x 224 variants a block, 256 computed; K4: 64
+#: variants x 4 app groups a block, apps staged 64 at a time), many apps,
+#: and one full shard
+EDGE_SHAPES = ((3, 223), (4, 224), (5, 225), (9, 449), (4, 63), (5, 65),
+               (7, 255), (8, 256), (63, 64), (65, 62_501), (257, 4099),
+               (1025, 62_501))
+#: phase 4's shard: K4's A x V on the main path
+STATS_A, STATS_V = 64, 62_501
+#: an issue slot a cycle on each of the 4 schedulers of each of the 132
+#: SMs, at the 1.98 GHz boost clock: the rate of the instruction bound
+ISSUE_PER_S = 132 * 4 * 1.98e9
 SOURCE = "src/repro_torch/csrc/congruence.cu"
 REPLACES = {
     "congruence": "src/repro/core/kernels_pallas.py:90",
@@ -207,6 +230,63 @@ def bound(kind: str, a: int, v: int, clamp: bool = True):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sass_functions(sass: str):
+    """``cuobjdump -sass`` text as {function: [(address, instruction)]}."""
+    import re
+
+    fns, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            fns[fn] = []
+        elif fn is not None:
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if m:
+                fns[fn].append((int(m.group(1), 16), m.group(2)))
+    return fns
+
+
+def cell_loop(instrs):
+    """(instructions a cell, loop length, cells an iteration) of the
+    innermost loop that computes cells: the backward branch with no loop
+    inside it whose body holds the most ``MUFU.RSQ`` (one square root a
+    cell, for the aggregate); None when no such loop is found.  The count
+    is the fast path's: instructions that a predicated forward branch skips
+    on its way past a ``CALL`` with no ``MUFU`` between (a division's or
+    square root's slow path, for denormals and range edges) are left out."""
+    import re
+
+    loops, slow = [], []
+    for addr, text in instrs:
+        m = re.search(r"\bBRA\s+\S*?(0x[0-9a-f]+)", text)
+        if not m:
+            continue
+        target = int(m.group(1), 16)
+        if target <= addr:
+            loops.append((target, addr))
+        else:
+            skipped = [t for a, t in instrs if addr < a < target]
+            if (text.startswith("@") and any("CALL" in t for t in skipped)
+                    and not any("MUFU" in t for t in skipped)):
+                slow.append((addr, target))
+    best = None
+    for lo, hi in loops:
+        if any(lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi) for l2, h2 in loops):
+            continue
+        body = [t for a, t in instrs if lo <= a <= hi
+                and not any(s0 < a < s1 for s0, s1 in slow)]
+        cells = sum("MUFU.RSQ" in t for t in body)
+        if cells and (best is None or cells > best[2]):
+            best = (len(body) / cells, len(body), cells)
+    return best
+
+
+def issue_bound_ms(instr_per_cell: float, cells: int) -> float:
+    """The instruction bound: a cell's SASS instructions, each issued for
+    32 lanes at a time by one of the card's schedulers a cycle."""
+    return instr_per_cell * cells / (ISSUE_PER_S * 32) * 1e3
+
+
 # --------------------------------------------------------------------------- #
 # Inputs
 # --------------------------------------------------------------------------- #
@@ -265,8 +345,11 @@ def check_stats(torch, got, want, what):
     """K4 against the plain statistics of the same float32 aggregate."""
     (mean, mins, idx), (pmean, pmins, pidx), agg = got, want[:3], want[3]
     merr = (mean - pmean).abs()
-    check(bool((merr <= MEAN_RTOL * pmean.abs() + 1e-7).all()),
-          f"{what}: means off by {float(merr.max()):.3e}")
+    both_nan = torch.isnan(mean) & torch.isnan(pmean)
+    finite = merr[~both_nan]
+    merr_max = float(finite.max()) if finite.numel() else 0.0
+    check(bool(((merr <= MEAN_RTOL * pmean.abs() + 1e-7) | both_nan).all()),
+          f"{what}: means off by {merr_max:.3e}")
     err = _close(torch, mins, pmins, f"{what} minima")
     for a in range(agg.shape[0]):
         row = agg[a]
@@ -278,48 +361,103 @@ def check_stats(torch, got, want, what):
                           f"{int(pidx[a])} with a clear minimum (gap {gap:.3e})")
         check(float(row[int(idx[a])]) <= float(top2[0]) + TOL,
               f"{what}: app {a} argmin column is not within {TOL} of the min")
-    return max(err, float(merr.max()))
+    return max(err, merr_max)
+
+
+def check_reduction(torch, K, got, agg, what):
+    """K4's reduction against the plain reduction of K1's aggregate on the
+    same stacks (the kernels share the per-cell arithmetic): argmin and
+    minimum exact, means to ``MEAN_RTOL`` (a different summation order)."""
+    mean, mins, idx = got
+    pmean, pmins, pidx = K.sweep_stats_plain(agg)
+    bad = int((idx != pidx).sum())
+    check(bad == 0, f"{what}: {bad} argmins differ from the reduction of K1's "
+                    f"aggregate (first: app {int((idx != pidx).nonzero()[0, 0]) if bad else -1})")
+    same = (mins == pmins) | (torch.isnan(mins) & torch.isnan(pmins))
+    check(bool(same.all()), f"{what}: minima differ from K1's aggregate")
+    both_nan = torch.isnan(mean) & torch.isnan(pmean)
+    check(bool((((mean - pmean).abs() <= MEAN_RTOL * pmean.abs() + 1e-7)
+                | both_nan).all()), f"{what}: means off K1's aggregate")
 
 
 def phase_kernels(torch, core, KC, dev):
+    from repro_torch.core import kernels_xp as K
+
     errs = {k: 0.0 for k in REPLACES}
     n = masked = 0
-    for a in SHAPES_A:
-        for v in SHAPES_V:
-            p32, m32 = stacks(torch, core, a, v, seed=a + v, dtype=torch.float32, dev=dev)
-            p64, m64 = p32.double(), m32.double()
-            for tm in ("serial", "overlap"):
-                tag = f"A={a} V={v} {tm}"
-                got = KC.step_time(p32[:6].contiguous(), m32, tm)
-                errs["step_time"] = max(errs["step_time"], _close(
-                    torch, got, KC.plain_step_time(p32, m32, tm), f"K2 {tag} f32"))
-                _close(torch, got, KC.plain_step_time(p64, m64, tm), f"K2 {tag} f64")
-                for clamp in (False, True):
-                    tag2 = f"{tag} clamp={clamp}"
-                    got = KC.congruence(p32, m32, tm, clamp=clamp)
-                    plain = KC.plain_congruence(p32, m32, tm, clamp=clamp)
-                    errs["congruence"] = max(errs["congruence"], _close(
-                        torch, got, plain, f"K1 {tag2} f32"))
-                    want = KC.plain_congruence(p64, m64, tm, clamp=clamp)
-                    ok = conditioned(torch, want[0], p64[6], want[1:4])
-                    masked += int((~ok).sum())
-                    _close(torch, got, want, f"K1 {tag2} f64",
-                           torch.cat([torch.ones_like(want[:4], dtype=torch.bool),
-                                      ok.expand(4, *ok.shape)]))
-                    plain_agg = plain[7]
-                    errs["sweep_stats"] = max(errs["sweep_stats"], check_stats(
-                        torch, KC.sweep_stats(p32, m32, tm, clamp),
-                        (*KC.plain_sweep_stats(p32, m32, tm, clamp), plain_agg),
-                        f"K4 {tag2}"))
-                    n += 1
-            got = KC.default_beta(p32[:6].contiguous(), m32)
-            errs["default_beta"] = max(errs["default_beta"], _close(
-                torch, got, KC.plain_default_beta(p32, m32), f"K3 A={a} V={v} f32"))
-            _close(torch, got, KC.plain_default_beta(p64, m64), f"K3 A={a} V={v} f64")
+    shapes = [(a, v) for a in SHAPES_A for v in SHAPES_V] + list(EDGE_SHAPES)
+    for a, v in shapes:
+        p32, m32 = stacks(torch, core, a, v, seed=a + v, dtype=torch.float32, dev=dev)
+        p64, m64 = p32.double(), m32.double()
+        for tm in ("serial", "overlap"):
+            tag = f"A={a} V={v} {tm}"
+            got = KC.step_time(p32[:6].contiguous(), m32, tm)
+            errs["step_time"] = max(errs["step_time"], _close(
+                torch, got, KC.plain_step_time(p32, m32, tm), f"K2 {tag} f32"))
+            _close(torch, got, KC.plain_step_time(p64, m64, tm), f"K2 {tag} f64")
+            for clamp in (False, True):
+                tag2 = f"{tag} clamp={clamp}"
+                got = KC.congruence(p32, m32, tm, clamp=clamp)
+                plain = KC.plain_congruence(p32, m32, tm, clamp=clamp)
+                errs["congruence"] = max(errs["congruence"], _close(
+                    torch, got, plain, f"K1 {tag2} f32"))
+                want = KC.plain_congruence(p64, m64, tm, clamp=clamp)
+                ok = conditioned(torch, want[0], p64[6], want[1:4])
+                masked += int((~ok).sum())
+                _close(torch, got, want, f"K1 {tag2} f64",
+                       torch.cat([torch.ones_like(want[:4], dtype=torch.bool),
+                                  ok.expand(4, *ok.shape)]))
+                del want, ok
+                stats = KC.sweep_stats(p32, m32, tm, clamp)
+                check_reduction(torch, K, stats, got[7], f"K4 {tag2}")
+                errs["sweep_stats"] = max(errs["sweep_stats"], check_stats(
+                    torch, stats, (*K.sweep_stats_plain(plain[7]), plain[7]),
+                    f"K4 {tag2}"))
+                n += 1
+        got = KC.default_beta(p32[:6].contiguous(), m32)
+        errs["default_beta"] = max(errs["default_beta"], _close(
+            torch, got, KC.plain_default_beta(p32, m32), f"K3 A={a} V={v} f32"))
+        _close(torch, got, KC.plain_default_beta(p64, m64), f"K3 A={a} V={v} f64")
     torch.cuda.synchronize()
     log(f"phase 2: K1-K4 match their plain versions (f32 and f64) on {n} "
-        f"configurations (max abs err vs f32: {json.dumps(errs)}); "
-        f"{masked} ill-conditioned Eq. 1 cells left out of the f64 check")
+        f"configurations ({len(shapes)} (A, V) shapes x 2 timing models x clamp "
+        f"off / on; max abs err vs f32: {json.dumps(errs)}); {masked} "
+        "ill-conditioned Eq. 1 cells left out of the f64 check; K4's argmins "
+        "and minima equal the reduction of K1's own aggregate on every one")
+
+    # K4 on phase 4's shard with NaN aggregates (a NaN peak rate in three
+    # variant columns; then also a NaN beta in two apps, whose rows are all
+    # NaN) and with every variant alike
+    p32, m32 = stacks(torch, core, STATS_A, STATS_V, seed=11, dtype=torch.float32, dev=dev)
+    nan_cols = [2 * STATS_V // 3, 2 * STATS_V // 3 + 1, STATS_V - 1]
+    nan_apps = [3, 17]
+    m_nan = m32.clone()
+    m_nan[0, nan_cols] = float("nan")
+    p_nan = p32.clone()
+    p_nan[6, nan_apps] = float("nan")
+    m_same = m32[:, :1].expand(-1, STATS_V).contiguous()
+    first_nan = torch.full((STATS_A,), nan_cols[0], dtype=torch.long, device=dev)
+    nan_rows = first_nan.clone()
+    nan_rows[nan_apps] = 0
+    zeros = torch.zeros(STATS_A, dtype=torch.long, device=dev)
+    for name, p, m, expect in (("NaN columns", p32, m_nan, first_nan),
+                               ("NaN columns and rows", p_nan, m_nan, nan_rows),
+                               ("identical variants", p32, m_same, zeros)):
+        for tm in ("serial", "overlap"):
+            for clamp in (False, True):
+                tag = f"K4 {name} A={STATS_A} V={STATS_V} {tm} clamp={clamp}"
+                agg = KC.congruence(p, m, tm, clamp=clamp)[7]
+                stats = KC.sweep_stats(p, m, tm, clamp)
+                check_reduction(torch, K, stats, agg, tag)
+                check_stats(torch, stats, (*KC.plain_sweep_stats(p, m, tm, clamp),
+                                           KC.plain_congruence(p, m, tm, clamp=clamp)[7]),
+                            tag)
+                check(bool((stats[2] == expect).all()),
+                      f"{tag}: argmins {stats[2].tolist()} != {expect.tolist()}")
+    log(f"phase 2: K4 on a {STATS_A} x {STATS_V} shard with NaN aggregates takes "
+        f"the first NaN (variant {nan_cols[0]}; variant 0 in all-NaN rows "
+        f"{nan_apps}), and with {STATS_V} identical variants index 0 in every "
+        "app, across all blocks")
     return errs
 
 
@@ -505,7 +643,26 @@ def cuda_ms(torch, fn, reps=10, rounds=5) -> float:
     return statistics.median(times)
 
 
-def phase_timings(torch, core, KC, dev, p3):
+def host_us(torch, fn, n=200) -> float:
+    """Host microseconds a call of ``fn`` takes to return (launches are
+    asynchronous), over ``n`` calls after a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+#: the device kernels of each sweep wrapper, by the name the profiler gives
+DEVICE_KERNELS = {"congruence": ("congruence_k",), "step_time": ("step_time_k",),
+                  "default_beta": ("default_beta_k",),
+                  "sweep_stats": ("sweep_stats_k", "stats_merge_k")}
+
+
+def phase_timings(torch, core, KC, dev, p3, sass_loops):
     import numpy as np
 
     res = p3["result"]
@@ -540,13 +697,36 @@ def phase_timings(torch, core, KC, dev, p3):
         ms = cuda_ms(torch, kern)
         plain_ms = cuda_ms(torch, plain)
         bound_ms, bound_by = bound(name, ra, rv)
+        device = {k: device_us(torch, kern, k) for k in DEVICE_KERNELS[name]}
+        device_ms = sum(device.values()) / 1e3
         rows[name] = dict(shape=[ra, rv], ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
+        extra = {}
+        kernel = DEVICE_KERNELS[name][0]
+        if sass_loops.get(kernel):
+            instr = sass_loops[kernel][0]
+            extra["instruction_bound_ms"] = issue_bound_ms(instr, ra * rv)
+            extra["sass_instructions_a_cell"] = instr
+            extra["device_share_of_instruction_bound"] = (
+                extra["instruction_bound_ms"] / device_ms)
         log(json.dumps({"timing": name, "A": ra, "V": rv, "ms": ms,
-                        "plain_ms": plain_ms, "bound_us": bound_ms * 1e3,
-                        "bound_by": bound_by, "library_ms": None,
+                        "device_us": device, "device_ms": device_ms,
+                        "host_us_a_call": host_us(torch, kern),
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by,
+                        "device_share_of_bound": bound_ms / device_ms,
+                        **extra, "library_ms": None,
                         "library": "none: no single PyTorch call computes "
                                    "this function"}))
+    # K1's output written by the card's own fill: a ceiling for its stores
+    # (no PyTorch call computes K1's function, so no library time)
+    out = torch.empty((8, a, v), dtype=torch.float32, device=dev)
+    fill_ms = cuda_ms(torch, lambda: out.fill_(0.0))
+    log(json.dumps({"ceiling": "fill_ of K1's output", "shape": list(out.shape),
+                    "bytes": out.numel() * 4, "ms": fill_ms,
+                    "tb_per_s": out.numel() * 4 / fill_ms / 1e9,
+                    "k1_share_of_fill_rate": fill_ms / rows["congruence"]["ms"]}))
+    del out
     out = KC.congruence(p_stack, m_stack, clamp=True)
     torch.cuda.synchronize()
     d2h = []
@@ -1379,6 +1559,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass_loops = {}
     if os.path.exists(cuobjdump):
         sass = subprocess.run([cuobjdump, "-sass", _build.build_info["path"]],
                               capture_output=True, text=True, timeout=300).stdout
@@ -1391,13 +1572,29 @@ def main() -> int:
         log(f"phase 1: HGMMA instructions in the SASS of the tensor-core K5 kernel: "
             f"{sorted(hgmma.values())} in its {len(hgmma)} instantiations (D 64, 128)")
         check(len(hgmma) == 2, "the tensor-core K5 kernel's SASS has no HGMMA")
+        fns = sass_functions(sass)
+        with open(os.path.join(ROOT, "build", "congruence.sass"), "w") as f:
+            for fn, instrs in fns.items():
+                if "congruence_cu" in fn:
+                    f.write(f"Function : {fn}\n")
+                    f.writelines(f"  /*{a:04x}*/ {t} ;\n" for a, t in instrs)
+        for kernel in ("congruence_k", "sweep_stats_k"):
+            # the instantiation phase 5 times: serial timing, clamp on
+            found = ([fn for fn in fns if f"{kernel}ILb0ELb1E" in fn]
+                     or [fn for fn in fns if kernel in fn])
+            sass_loops[kernel] = cell_loop(fns[found[0]]) if found else None
+            log(f"phase 1: SASS cell loop of {kernel}: " + (
+                "not found" if not sass_loops[kernel] else
+                "{:.1f} instructions a cell ({} in the loop, {} cells an "
+                "iteration)".format(*sass_loops[kernel])))
     else:
-        log("phase 1: cuobjdump not found; the HGMMA check is left out")
+        log("phase 1: cuobjdump not found; the HGMMA check and the SASS "
+            "instruction bounds are left out")
 
     errs = phase_kernels(torch, core, KC, dev)
     p3 = phase_run_sweep(torch, core, KC, dev)
     p4 = phase_shard_sweep(torch, core, KC, dev, p3["profiles"])
-    rows = phase_timings(torch, core, KC, dev, p3)
+    rows = phase_timings(torch, core, KC, dev, p3, sass_loops)
     log(json.dumps({"end_to_end": "shard_sweep_streamed", "A": 64,
                     "V": p4["result"].num_variants,
                     "shards": p4["result"].num_shards,

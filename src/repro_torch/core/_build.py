@@ -43,7 +43,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "repro_threads_per_block": [],
+    "repro_stats_blocks": [_I],
     "repro_congruence": [_P, _I, _P, _I, _P, _I, _F, _I, _P],
     "repro_step_time": [_P, _I, _P, _I, _P, _I, _P],
     "repro_default_beta": [_P, _I, _P, _P, _P],

@@ -190,7 +190,9 @@ def sweep_stats(p_stack: torch.Tensor, m_stack: torch.Tensor,
                 eps: float = IDEAL_EPS):
     """K4: the fused pass reduced on the device to the per-variant suite
     mean ``(V,)``, per-app minimum ``(A,)`` and per-app first-occurrence
-    argmin ``(A,)`` (int64) of the aggregate; NaN counts as the minimum."""
+    argmin ``(A,)`` (int64) of the aggregate; NaN counts as the minimum.
+    On the card the mean and the minima are views of one buffer that also
+    holds the kernel's scratch."""
     _check_stacks(p_stack, m_stack, P_ROWS)
     overlap = _overlap(timing_model)
     if not _on_kernel(p_stack, m_stack):
@@ -200,18 +202,18 @@ def sweep_stats(p_stack: torch.Tensor, m_stack: torch.Tensor,
         raise ValueError(f"sweep_stats needs apps and variants, got A={a}, V={v}")
     dev = p_stack.device
     lib = _lib()
-    nblocks = -(-v // lib.repro_threads_per_block())
-    mean = torch.empty((v,), dtype=torch.float32, device=dev)
-    part_val = torch.empty((nblocks, a), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((nblocks, a), dtype=torch.int32, device=dev)
-    app_min = torch.empty((a,), dtype=torch.float32, device=dev)
+    # one float32 allocation holds the mean, the minima and the kernel's
+    # (A, blocks) value and index partials (int32, stored in the same words)
+    n_part = a * lib.repro_stats_blocks(v)
+    buf = torch.empty((v + a + 2 * n_part,), dtype=torch.float32, device=dev)
     app_idx = torch.empty((a,), dtype=torch.int64, device=dev)
+    base = buf.data_ptr()
     _launch(lib.repro_sweep_stats, p_stack.data_ptr(), a, m_stack.data_ptr(),
-            v, overlap, float(eps), int(bool(clamp)), mean.data_ptr(),
-            part_val.data_ptr(), part_idx.data_ptr(), app_min.data_ptr(),
+            v, overlap, float(eps), int(bool(clamp)), base,
+            base + 4 * (v + a), base + 4 * (v + a + n_part), base + 4 * v,
             app_idx.data_ptr(), _stream())
     sweep_stats.launches += 1
-    return mean, app_min, app_idx
+    return buf[:v], buf[v:v + a], app_idx
 
 
 WRAPPERS = (congruence, step_time, default_beta, sweep_stats)

@@ -569,6 +569,10 @@ def default_beta_batched(
         be.default_beta(pb.arrays(), mb.select(beta_ref).arrays()))
 
 
+def _has_nan(*keys) -> bool:
+    return any(np.isnan(k).any() for k in keys)
+
+
 def pareto_front_indices(area, aggregate) -> List[int]:
     """Indices on the 2-D (area, aggregate) Pareto front, both minimized.
 
@@ -579,8 +583,15 @@ def pareto_front_indices(area, aggregate) -> List[int]:
     """
     area = np.asarray(area)
     aggregate = np.asarray(aggregate)
-    # stable lexicographic (area, aggregate) order, as sorted() with a key
-    order = np.lexsort((aggregate, area))
+    if _has_nan(area, aggregate):
+        # sorted() on the key tuple, as the reference: with a NaN key it
+        # is no total order, and lexsort would place the NaN elsewhere
+        order = np.array(sorted(range(len(area)),
+                                key=lambda i: (area[i], aggregate[i])),
+                         dtype=np.int64)
+    else:
+        # stable lexicographic (area, aggregate) order, as sorted() with a key
+        order = np.lexsort((aggregate, area))
     agg = aggregate[order]
     # admitted = strictly below the running minimum of everything before it
     prev_best = np.fmin.accumulate(np.concatenate(([np.inf], agg[:-1])))
@@ -598,7 +609,11 @@ def pareto_front_indices_3d(aggregate, area, power) -> List[int]:
     aggregate = np.asarray(aggregate)
     area = np.asarray(area)
     power = np.asarray(power)
-    order = np.lexsort((aggregate, power, area))
+    if _has_nan(area, power, aggregate):
+        order = sorted(range(len(area)),
+                       key=lambda i: (area[i], power[i], aggregate[i]))
+    else:
+        order = np.lexsort((aggregate, power, area))
     # the accepted front's coordinates, grown in place: one vectorized
     # dominance test per candidate instead of a Python loop over the front
     fa = np.empty(len(order))

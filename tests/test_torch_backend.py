@@ -364,6 +364,161 @@ def test_sweep_stats_plain_follows_numpy_nan_and_tie_rules():
 
 
 # --------------------------------------------------------------------------- #
+# K4's reduction order on the card, emulated in float32
+# --------------------------------------------------------------------------- #
+
+# congruence.cu's K4 shape: variants a block, app groups, threads an app
+# in a block's reduction, threads of the merge's block
+STAT_VARIANTS, STAT_GROUPS, STAT_SPLIT, STAT_THREADS = 64, 4, 4, 256
+
+
+def better(v, i, bv, bi):
+    """congruence.cu's ``better()``: np.argmin's order on (value, index)
+    pairs -- a NaN first, then the lower value, the lower index on ties."""
+    vn, bn = v != v, bv != bv
+    if vn or bn:
+        return vn and (not bn or i < bi)
+    return v < bv or (v == bv and i < bi)
+
+
+def _tree(pairs, offsets):
+    """Lane i takes pair i; at each offset every lane joins its xor partner
+    by ``better`` (the kernels' ``__shfl_xor_sync`` trees)."""
+    for off in offsets:
+        pairs = [p if not better(*pairs[i ^ off], *p) else pairs[i ^ off]
+                 for i, p in enumerate(pairs)]
+    return pairs[0]
+
+
+def k4_emulated(agg):
+    """K4's statistics of a float32 ``(A, V)`` aggregate in the kernels'
+    order: each app group's apps (a == g mod 4) summed in increasing order,
+    the four group sums in group order, divided by A; per block of 64
+    variants, four threads an app scan variants q, q + 4, ... in order and
+    a 2-step tree joins them; then one block of 256 threads an app walks
+    the blocks, thread i blocks i, i + 256, ..., a 5-step tree joins each
+    warp's lanes and a 3-step tree the 8 warps."""
+    agg = np.asarray(agg, dtype=np.float32)
+    A, V = agg.shape
+    groups = [np.zeros(V, np.float32) for _ in range(STAT_GROUPS)]
+    for a in range(A):
+        groups[a % STAT_GROUPS] = groups[a % STAT_GROUPS] + agg[a]
+    total = groups[0]
+    for g in groups[1:]:
+        total = total + g
+    mean = total / np.float32(A)
+    nblocks = -(-V // STAT_VARIANTS)
+    mins, idx = np.empty(A, np.float32), np.empty(A, np.int64)
+    for a in range(A):
+        parts = []
+        for b in range(nblocks):
+            v0 = b * STAT_VARIANTS
+            row = [float(agg[a, v0 + k]) if v0 + k < V else np.inf
+                   for k in range(STAT_VARIANTS)]
+            scans = []
+            for q in range(STAT_SPLIT):
+                # the kernel's in-order scan: indices rise, so a NaN beats a
+                # number, a lower value wins and a tie keeps the earlier one
+                bv, bi = row[q], q
+                for k in range(q + STAT_SPLIT, STAT_VARIANTS, STAT_SPLIT):
+                    if not row[k] >= bv and bv == bv:
+                        bv, bi = row[k], k
+                scans.append((bv, bi))
+            bv, bi = _tree(scans, (1, 2))
+            parts.append((bv, v0 + bi))
+        threads = []
+        for i in range(STAT_THREADS):
+            bv, bi = np.inf, 2 ** 31 - 1
+            for b in range(i, nblocks, STAT_THREADS):
+                if better(*parts[b], bv, bi):
+                    bv, bi = parts[b]
+            threads.append((bv, bi))
+        warps = [_tree(threads[w:w + 32], (1, 2, 4, 8, 16))
+                 for w in range(0, STAT_THREADS, 32)]
+        mins[a], idx[a] = _tree(warps, (1, 2, 4))
+    return mean, mins, idx
+
+
+def _stat_rows(seed, A=9, V=2113):
+    """A float32 aggregate over 34 blocks of 64 variants with exact ties,
+    NaN cells, an all-NaN row, an all-tie row and a row of +inf."""
+    rng = np.random.default_rng(seed)
+    agg = rng.integers(0, 6, (A, V)).astype(np.float32) * np.float32(0.25)
+    agg[1, rng.choice(V, 3, replace=False)] = np.nan
+    agg[2] = np.nan
+    agg[3] = np.float32(0.5)
+    agg[4] = np.inf
+    agg[5, -1] = -1.0                   # the minimum in the ragged block
+    agg[6, 70] = agg[6, 2000] = -2.0    # a tie across blocks
+    return agg
+
+
+@pytest.mark.parametrize("seed,A,V", [(0, 9, 2113), (1, 9, 2113), (2, 7, 16_450)])
+def test_k4_emulated_order_matches_numpy_on_nan_and_tie_rows(seed, A, V):
+    """Over 34 blocks, and over 258, where the merge's threads walk two."""
+    agg = _stat_rows(seed, A, V)
+    mean, mins, idx = k4_emulated(agg)
+    np.testing.assert_array_equal(idx, np.argmin(agg, axis=1))
+    np.testing.assert_array_equal(mins, np.min(agg, axis=1))
+    np.testing.assert_allclose(mean, agg.astype(np.float64).mean(axis=0),
+                               rtol=1e-5, atol=0)
+    assert idx[2] == 0 and idx[3] == 0 and idx[4] == 0
+    assert idx[5] == agg.shape[1] - 1 and idx[6] == 70
+    pmean, pmins, pidx = PK.sweep_stats_plain(torch.as_tensor(agg))
+    np.testing.assert_array_equal(idx, pidx.numpy())
+    np.testing.assert_array_equal(mins, pmins.numpy())
+    np.testing.assert_allclose(mean, pmean.numpy(), rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+def test_k4_emulated_order_matches_plain_and_numpy_aggregate(clamp):
+    """The kernels' reduction order on the NumPy backend's aggregate of real
+    profiles (rounded to float32, as the kernels compute it): argmins exact
+    against the plain version and NumPy, means within 1e-5 of the float64
+    NumPy mean."""
+    ref_p, port_p = both_profiles(profile_dicts(6, seed=29)
+                                  + _degenerate_dicts())
+    ref_m, port_m = both_machines(2100, seed=6)
+    ref_pb = RS.ProfileBatch.from_profiles(ref_p)
+    beta = RS.default_beta_batched(ref_pb, ref_m, backend="numpy")
+    agg64 = RK.get_backend("numpy").congruence(
+        ref_pb.arrays(), ref_m.arrays(), beta, clamp=clamp).aggregate
+    agg = agg64.astype(np.float32)
+    mean, mins, idx = k4_emulated(agg)
+    pmean, pmins, pidx = PK.sweep_stats_plain(torch.as_tensor(agg))
+    np.testing.assert_array_equal(idx, pidx.numpy())
+    np.testing.assert_array_equal(idx, np.argmin(agg, axis=1))
+    np.testing.assert_array_equal(mins, pmins.numpy())
+    np.testing.assert_allclose(mean, pmean.numpy(), rtol=1e-5, atol=0)
+    np.testing.assert_allclose(mean, agg64.mean(axis=0), rtol=1e-5, atol=0)
+    if clamp:   # the idle app scores 0 everywhere: a full row of ties
+        assert idx[-1] == 0
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_any_merge_tree_of_better_gives_numpy_argmin(seed):
+    """better() is a strict total order on (value, index), so merging the
+    pairs in any order and any tree shape returns np.argmin's index (a NaN
+    first, the first occurrence on ties) and its value."""
+    rng = np.random.default_rng(seed)
+    for _ in range(150):
+        n = int(rng.integers(1, 40))
+        x = rng.integers(-2, 3, n).astype(np.float64)
+        x[rng.random(n) < 0.1] = np.nan
+        x[rng.random(n) < 0.1] = rng.choice([np.inf, -np.inf])
+        pairs = [(float(v), i) for i, v in enumerate(x)]
+        rng.shuffle(pairs)
+        while len(pairs) > 1:
+            i, j = sorted(rng.choice(len(pairs), 2, replace=False))
+            b = pairs.pop(j)
+            a = pairs[i]
+            pairs[i] = b if better(*b, *a) else a
+        (v, i), = pairs
+        assert i == int(np.argmin(x))
+        assert (v != v and np.isnan(np.min(x))) or v == np.min(x)
+
+
+# --------------------------------------------------------------------------- #
 # Wrapper contract on the CPU
 # --------------------------------------------------------------------------- #
 
@@ -424,21 +579,52 @@ def _kernel_inputs(a, v, seed, dev):
     return p, m
 
 
+def _conditioned(want, beta, limit=1e3):
+    """Cells where Eq. 1 is well conditioned: (|gamma| + |beta| +
+    max |alpha|) / |gamma - beta| at most ``limit``.  Beyond it float32
+    rounding of the inputs alone (~1e-7 relative) moves a score by more
+    than 5e-4 from float64, in the plain float32 version as in the kernel
+    (ROADMAP.md, Queue 3, "Finding"; chip_smoke.py's COND_LIMIT)."""
+    gamma, alphas = want[0], want[1:4]
+    scale = gamma.abs() + beta.abs()[:, None] + alphas.abs().amax(dim=0)
+    return ~(scale > limit * (gamma - beta[:, None]).abs())
+
+
+#: (A, V) around the sweep kernels' tiles: K1 writes 4 apps x 224 variants
+#: a block (256 computed), K4 takes 64 variants x 4 app groups, its apps
+#: staged 64 at a time
+CARD_SHAPES = [(5, 1), (5, 127), (5, 129), (5, 4099), (3, 223), (4, 224),
+               (5, 225), (9, 449), (3, 63), (4, 64), (7, 65), (8, 255),
+               (63, 257), (65, 4099), (257, 2113)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("v", [1, 127, 129, 4099])
-def test_kernels_match_plain_on_card(cuda_device, v):
-    p, m = _kernel_inputs(5, v, seed=v, dev=cuda_device)
+@pytest.mark.parametrize("a,v", CARD_SHAPES)
+def test_kernels_match_plain_on_card(cuda_device, a, v):
+    p, m = _kernel_inputs(a, v, seed=v, dev=cuda_device)
     KC.reset_launch_counts()
     for tm in ("serial", "overlap"):
         for clamp in (False, True):
+            out = KC.congruence(p, m, tm, clamp=clamp)
+            # every cell against the plain float32 version ...
             torch.testing.assert_close(
-                KC.congruence(p, m, tm, clamp=clamp),
-                KC.plain_congruence(p.double(), m.double(), tm, clamp=clamp).float(),
+                out, KC.plain_congruence(p, m, tm, clamp=clamp),
                 rtol=F32_TOL, atol=F32_TOL)
+            # ... and against float64 where float32 Eq. 1 is well conditioned
+            want = KC.plain_congruence(p.double(), m.double(), tm, clamp=clamp)
+            ok = _conditioned(want, p.double()[6])
+            torch.testing.assert_close(out[:4], want[:4].float(),
+                                       rtol=F32_TOL, atol=F32_TOL)
+            torch.testing.assert_close(out[4:][:, ok], want[4:][:, ok].float(),
+                                       rtol=F32_TOL, atol=F32_TOL)
             mean, mins, idx = KC.sweep_stats(p, m, tm, clamp)
             pmean, pmins, pidx = KC.plain_sweep_stats(p, m, tm, clamp)
             torch.testing.assert_close(mean, pmean, rtol=1e-5, atol=1e-7)
             torch.testing.assert_close(mins, pmins, rtol=F32_TOL, atol=F32_TOL)
+            # K4 reduces exactly the aggregate K1 computes on the same stacks
+            kmean, kmins, kidx = PK.sweep_stats_plain(out[7])
+            assert torch.equal(idx, kidx) and torch.equal(mins, kmins)
+            torch.testing.assert_close(mean, kmean, rtol=1e-5, atol=1e-7)
         torch.testing.assert_close(
             KC.step_time(p[:6].contiguous(), m, tm),
             KC.plain_step_time(p, m, tm), rtol=F32_TOL, atol=0.0)
@@ -448,6 +634,30 @@ def test_kernels_match_plain_on_card(cuda_device, v):
     torch.cuda.synchronize()
     assert KC.launch_counts() == {"congruence": 4, "step_time": 2,
                                   "default_beta": 1, "sweep_stats": 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["nan", "same"])
+def test_sweep_stats_nan_and_tie_populations_on_card(cuda_device, fill):
+    """NaN peak rates in two variant columns past the first block and NaN
+    beta in one app; or every variant alike: the argmin is the first NaN,
+    or index 0, across all 66 blocks."""
+    p, m = _kernel_inputs(6, 4199, seed=3, dev=cuda_device)
+    if fill == "nan":
+        m[0, [3001, 4198]] = float("nan")
+        p[6, 2] = float("nan")
+        want = torch.tensor([3001, 3001, 0, 3001, 3001, 3001], device=cuda_device)
+    else:
+        m = m[:, :1].expand(-1, m.shape[1]).contiguous()
+        want = torch.zeros(6, dtype=torch.int64, device=cuda_device)
+    for tm in ("serial", "overlap"):
+        for clamp in (False, True):
+            mean, mins, idx = KC.sweep_stats(p, m, tm, clamp)
+            assert torch.equal(idx, want)
+            kmean, kmins, kidx = PK.sweep_stats_plain(
+                KC.congruence(p, m, tm, clamp=clamp)[7])
+            assert torch.equal(idx, kidx)
+            assert torch.equal(torch.isnan(mins), torch.isnan(kmins))
 
 
 @pytest.mark.cuda

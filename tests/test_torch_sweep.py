@@ -104,6 +104,32 @@ def test_reference_profile_json_loads_unchanged(tmp_path):
         assert loaded.to_json() == p.to_json()
 
 
+@pytest.mark.parametrize("dims", [2, 3])
+def test_pareto_fronts_match_reference_with_nan_keys(dims):
+    """Small integer-valued keys with ties and NaN in the aggregate, the
+    area and the power: the port's fronts equal the reference's, in
+    membership and in order (with a NaN key the port takes the
+    reference's ``sorted`` order instead of ``np.lexsort``)."""
+    rng = np.random.default_rng(dims)
+    with_nan = 0
+    for _ in range(400):
+        n = int(rng.integers(1, 14))
+        area, power, agg = (rng.integers(0, 4, n).astype(np.float64)
+                            for _ in range(3))
+        for key in (area, power, agg):
+            key[rng.random(n) < 0.15] = np.nan
+        with_nan += bool(np.isnan(np.stack([area, power, agg])).any())
+        if dims == 2:
+            got = PS.pareto_front_indices(area, agg)
+            want = RS.pareto_front_indices(area, agg)
+        else:
+            got = PS.pareto_front_indices_3d(agg, area, power)
+            want = RS.pareto_front_indices_3d(agg, area, power)
+        assert got == want, (area, power, agg)
+        assert all(type(i) is int for i in got)
+    assert with_nan > 300
+
+
 @pytest.mark.parametrize("mode", ["random", "grid"])
 def test_population_stream_shards_byte_identical(mode):
     space_r, space_p = RS.ParamSpace.default(), P.ParamSpace.default()
