@@ -9,13 +9,15 @@ Phases (any failure raises and the exit code is not 0):
      ``src/repro_torch/csrc`` with nvcc for sm_90a (one nvcc per source,
      all at once), log ptxas's registers and spills and, where
      ``cuobjdump`` exists, check that the tensor-core K5 kernel's SASS has
-     HGMMA and count the SASS instructions of K1's and K4's per-cell loops
-     (written to ``build/congruence.sass``);
+     HGMMA and count the SASS instructions of K1's, K2's and K4's per-cell
+     loops (written to ``build/congruence.sass``);
   2. hold each sweep kernel (K1 congruence, K2 step time, K3 default beta,
      K4 sweep statistics) against its plain PyTorch version on the card,
      at A in {1, 3, 64} x V in {1, 127, 128, 129, 513, 100003} and at the
      edges of K1's and K4's tiles (``EDGE_SHAPES``: A up to 1025, V up to
-     62501), both timing models, clamp on and off, with degenerate cells;
+     62501, and K2's: 16 apps x 256 variants a block, each +-1), both
+     timing models, clamp on and off, with degenerate cells; K1, K2 and K3
+     must equal their plain float32 versions in every cell, NaN included;
      K4's argmins and minima must equal the reduction of K1's own
      aggregate exactly; then K4 on a 64 x 62501 shard with NaN aggregates
      (NaN columns, and NaN rows) and with every variant alike, where the
@@ -30,8 +32,11 @@ Phases (any failure raises and the exit code is not 0):
      bound, with each device kernel's own time (``torch.profiler``), the
      wrapper's host time a call, K1's and K4's instruction bound (SASS
      instructions a cell x cells over the card's issue rate) and a
-     ``fill_`` of K1's output as the ceiling of its stores; and the
-     end-to-end split;
+     ``fill_`` of K1's output as the ceiling of its stores; K2 warm and
+     cold (a 256 MB fill between launches) and ``fill_`` ceilings of K2's
+     output; the launch floor (one block of 32 threads writing one float)
+     beside K3; ``CudaBackend.default_beta`` a call; and the end-to-end
+     split;
   6. hold both K5 (flash attention) kernels against the plain version on
      the card: B in {1, 2} x (H, K) in {(4, 4), (8, 2), (32, 2)} x D in
      {64, 128} x S = T in {1, 127, 128, 129, 255, 256, 257, 2048} x causal
@@ -117,11 +122,19 @@ SHAPES_V = (1, 127, 128, 129, 513, 100_003)
 EDGE_SHAPES = ((3, 223), (4, 224), (5, 225), (9, 449), (4, 63), (5, 65),
                (7, 255), (8, 256), (63, 64), (65, 62_501), (257, 4099),
                (1025, 62_501))
+#: ... and of K2's: 16 apps x 256 variants a block
+EDGE_SHAPES += ((15, 255), (16, 256), (17, 257))
 #: phase 4's shard: K4's A x V on the main path
 STATS_A, STATS_V = 64, 62_501
 #: an issue slot a cycle on each of the 4 schedulers of each of the 132
 #: SMs, at the 1.98 GHz boost clock: the rate of the instruction bound
 ISSUE_PER_S = 132 * 4 * 1.98e9
+#: the kernels whose per-cell SASS loop phase 1 counts: the instantiation
+#: phase 5 times (serial timing, clamp on), the instruction that marks a
+#: cell and how many of it a cell has (see ``cell_loop``)
+SASS_LOOPS = {"congruence_k": ("ILb0ELb1E", "MUFU.RSQ", 1),
+              "sweep_stats_k": ("ILb0ELb1E", "MUFU.RSQ", 1),
+              "step_time_k": ("ILb0E", "MUFU.RCP", 4)}
 SOURCE = "src/repro_torch/csrc/congruence.cu"
 REPLACES = {
     "congruence": "src/repro/core/kernels_pallas.py:90",
@@ -246,11 +259,13 @@ def sass_functions(sass: str):
     return fns
 
 
-def cell_loop(instrs):
+def cell_loop(instrs, marker="MUFU.RSQ", per_cell=1):
     """(instructions a cell, loop length, cells an iteration) of the
     innermost loop that computes cells: the backward branch with no loop
-    inside it whose body holds the most ``MUFU.RSQ`` (one square root a
-    cell, for the aggregate); None when no such loop is found.  The count
+    inside it whose body holds the most ``marker`` instructions, of which a
+    cell has ``per_cell`` (K1 and K4: one ``MUFU.RSQ``, the aggregate's
+    square root; K2: four ``MUFU.RCP``, its IEEE divisions); None when no
+    such loop is found.  The count
     is the fast path's: instructions that a predicated forward branch skips
     on its way past a ``CALL`` with no ``MUFU`` between (a division's or
     square root's slow path, for denormals and range edges) are left out."""
@@ -275,7 +290,7 @@ def cell_loop(instrs):
             continue
         body = [t for a, t in instrs if lo <= a <= hi
                 and not any(s0 < a < s1 for s0, s1 in slow)]
-        cells = sum("MUFU.RSQ" in t for t in body)
+        cells = sum(marker in t for t in body) / per_cell
         if cells and (best is None or cells > best[2]):
             best = (len(body) / cells, len(body), cells)
     return best
@@ -341,6 +356,18 @@ def _close(torch, got, want, what, mask=None):
     return float(err[finite].max()) if bool(finite.any()) else 0.0
 
 
+def _exact(torch, got, want, what):
+    """``got`` equal to ``want`` in every cell, NaN where it is NaN: the
+    kernels round every operation as their plain float32 versions do.
+    Returns the max abs error, 0.0."""
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    if not bool(same.all()):
+        err = (got - want).abs()[~same]
+        raise Failure(f"{what}: {int((~same).sum())} cells differ from the "
+                      f"plain float32 version (max abs err {float(err.max()):.3e})")
+    return 0.0
+
+
 def check_stats(torch, got, want, what):
     """K4 against the plain statistics of the same float32 aggregate."""
     (mean, mins, idx), (pmean, pmins, pidx), agg = got, want[:3], want[3]
@@ -392,14 +419,14 @@ def phase_kernels(torch, core, KC, dev):
         for tm in ("serial", "overlap"):
             tag = f"A={a} V={v} {tm}"
             got = KC.step_time(p32[:6].contiguous(), m32, tm)
-            errs["step_time"] = max(errs["step_time"], _close(
+            errs["step_time"] = max(errs["step_time"], _exact(
                 torch, got, KC.plain_step_time(p32, m32, tm), f"K2 {tag} f32"))
             _close(torch, got, KC.plain_step_time(p64, m64, tm), f"K2 {tag} f64")
             for clamp in (False, True):
                 tag2 = f"{tag} clamp={clamp}"
                 got = KC.congruence(p32, m32, tm, clamp=clamp)
                 plain = KC.plain_congruence(p32, m32, tm, clamp=clamp)
-                errs["congruence"] = max(errs["congruence"], _close(
+                errs["congruence"] = max(errs["congruence"], _exact(
                     torch, got, plain, f"K1 {tag2} f32"))
                 want = KC.plain_congruence(p64, m64, tm, clamp=clamp)
                 ok = conditioned(torch, want[0], p64[6], want[1:4])
@@ -415,13 +442,14 @@ def phase_kernels(torch, core, KC, dev):
                     f"K4 {tag2}"))
                 n += 1
         got = KC.default_beta(p32[:6].contiguous(), m32)
-        errs["default_beta"] = max(errs["default_beta"], _close(
+        errs["default_beta"] = max(errs["default_beta"], _exact(
             torch, got, KC.plain_default_beta(p32, m32), f"K3 A={a} V={v} f32"))
         _close(torch, got, KC.plain_default_beta(p64, m64), f"K3 A={a} V={v} f64")
     torch.cuda.synchronize()
     log(f"phase 2: K1-K4 match their plain versions (f32 and f64) on {n} "
         f"configurations ({len(shapes)} (A, V) shapes x 2 timing models x clamp "
-        f"off / on; max abs err vs f32: {json.dumps(errs)}); {masked} "
+        f"off / on; max abs err vs f32: {json.dumps(errs)}; K1-K3 equal to "
+        f"it in every cell, NaN included); {masked} "
         "ill-conditioned Eq. 1 cells left out of the f64 check; K4's argmins "
         "and minima equal the reduction of K1's own aggregate on every one")
 
@@ -656,8 +684,61 @@ def host_us(torch, fn, n=200) -> float:
     return us
 
 
+def cold_ms(torch, fn, flush, n=20) -> float:
+    """Median time by CUDA events of one call of ``fn`` enqueued right
+    after ``flush`` (which evicts the L2), the events around that call
+    alone; the flush runs long enough on the device for the host to
+    enqueue the call before it ends."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(n):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def host_ms_median(torch, fn, n=200) -> float:
+    """Median host milliseconds of one call of ``fn`` over ``n`` calls, each
+    ending where ``fn`` returns (a call that copies its result to the host
+    waits for the device)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def in_turns(measures):
+    """Each named measurement run twice, in the order A, B, ..., B, A, and
+    the mean of its two readings: a drift of the card or the host over the
+    window weighs on all of them alike."""
+    names = list(measures)
+    got = {k: [] for k in names}
+    for k in names + names[::-1]:
+        got[k].append(measures[k]())
+    return {k: sum(v) / len(v) for k, v in got.items()}
+
+
+#: the L2 flush of the cold timings: 256 MB, five times the 50 MB L2
+FLUSH_BYTES = 256 << 20
+#: K1's device time before this kernel set (PERF.md's K1 row, the
+#: whole-line design's own figure), which phase 5 prints beside its own
+K1_EARLIER_DEVICE_MS = 0.0772
+
 #: the device kernels of each sweep wrapper, by the name the profiler gives
-DEVICE_KERNELS = {"congruence": ("congruence_k",), "step_time": ("step_time_k",),
+DEVICE_KERNELS = {"congruence": ("congruence_k",),
+                  "step_time": ("step_time_k",),
                   "default_beta": ("default_beta_k",),
                   "sweep_stats": ("sweep_stats_k", "stats_merge_k")}
 
@@ -682,13 +763,16 @@ def phase_timings(torch, core, KC, dev, p3, sass_loops):
          for r in stream.batch(lo, hi).arrays()])).to(dev)
     a, v, vs = p_stack.shape[1], m_stack.shape[1], m_shard.shape[1]
     p6 = p_stack[:6].contiguous()
+    # the (8, 1) reference column, made once: K3's call as the main path
+    # makes it launches K3 alone
+    m_ref = m_stack[:, :1].contiguous()
     runs = {
         "congruence": ((a, v), lambda: KC.congruence(p_stack, m_stack, clamp=True),
                        lambda: KC.plain_congruence(p_stack, m_stack, clamp=True)),
         "step_time": ((a, v), lambda: KC.step_time(p6, m_stack),
                       lambda: KC.plain_step_time(p6, m_stack)),
-        "default_beta": ((a, 1), lambda: KC.default_beta(p6, m_stack[:, :1].contiguous()),
-                         lambda: KC.plain_default_beta(p6, m_stack[:, :1])),
+        "default_beta": ((a, 1), lambda: KC.default_beta(p6, m_ref),
+                         lambda: KC.plain_default_beta(p6, m_ref)),
         "sweep_stats": ((a, vs), lambda: KC.sweep_stats(p_stack, m_shard, clamp=True),
                         lambda: KC.plain_sweep_stats(p_stack, m_shard, clamp=True)),
     }
@@ -699,9 +783,14 @@ def phase_timings(torch, core, KC, dev, p3, sass_loops):
         bound_ms, bound_by = bound(name, ra, rv)
         device = {k: device_us(torch, kern, k) for k in DEVICE_KERNELS[name]}
         device_ms = sum(device.values()) / 1e3
+        host = host_us(torch, kern)
         rows[name] = dict(shape=[ra, rv], ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          device_ms=device_ms, host_us=host)
         extra = {}
+        if name == "congruence":
+            extra["earlier_device_ms"] = K1_EARLIER_DEVICE_MS
+            extra["device_ms_over_earlier"] = device_ms / K1_EARLIER_DEVICE_MS
         kernel = DEVICE_KERNELS[name][0]
         if sass_loops.get(kernel):
             instr = sass_loops[kernel][0]
@@ -709,9 +798,10 @@ def phase_timings(torch, core, KC, dev, p3, sass_loops):
             extra["sass_instructions_a_cell"] = instr
             extra["device_share_of_instruction_bound"] = (
                 extra["instruction_bound_ms"] / device_ms)
+            rows[name]["instruction_bound_ms"] = extra["instruction_bound_ms"]
         log(json.dumps({"timing": name, "A": ra, "V": rv, "ms": ms,
                         "device_us": device, "device_ms": device_ms,
-                        "host_us_a_call": host_us(torch, kern),
+                        "host_us_a_call": host,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by,
                         "device_share_of_bound": bound_ms / device_ms,
@@ -727,6 +817,7 @@ def phase_timings(torch, core, KC, dev, p3, sass_loops):
                     "tb_per_s": out.numel() * 4 / fill_ms / 1e9,
                     "k1_share_of_fill_rate": fill_ms / rows["congruence"]["ms"]}))
     del out
+    phase_k2_k3(torch, core, KC, dev, p3, rows, p6, m_stack, m_ref, sass_loops)
     out = KC.congruence(p_stack, m_stack, clamp=True)
     torch.cuda.synchronize()
     d2h = []
@@ -740,6 +831,73 @@ def phase_timings(torch, core, KC, dev, p3, sass_loops):
                     "d2h_ms_8xAxV": statistics.median(d2h),
                     "host_pareto_ms": p3["pareto_ms"]}))
     return rows
+
+
+def phase_k2_k3(torch, core, KC, dev, p3, rows, p6, m_stack, m_ref, sass_loops):
+    """Phase 5's K2 and K3 lines: K2 warm and cold beside its bounds and
+    the fill_ ceilings of its output; K3 beside the launch floor; the
+    backend's beta call."""
+    a, v = p6.shape[1], m_stack.shape[1]
+    # an int32 flush: its fill kernel's name differs from a float fill's
+    flush_buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    flush = lambda: flush_buf.fill_(1)
+    # K2 back to back (its 25.6 MB output stays in the 50 MB L2) and cold
+    # (a 256 MB fill_ between launches, as after K1's 205 MB on the main
+    # path); the flush kernel has another name, so device_us isolates K2
+    k2 = lambda: KC.step_time(p6, m_stack)
+    name = DEVICE_KERNELS["step_time"][0]
+    k2_row = rows["step_time"]
+    warm = device_us(torch, k2, name)
+    cold = device_us(torch, k2, name, between=flush)
+    log(json.dumps({
+        "k2": "warm and cold", "kernel": name, "A": a, "V": v,
+        "device_us_warm": warm, "device_us_cold": cold,
+        "event_ms_warm": k2_row["ms"], "event_ms_cold": cold_ms(torch, k2, flush),
+        "host_us_a_call": k2_row["host_us"], "bytes_bound_ms": k2_row["bound_ms"],
+        "instruction_bound_ms": k2_row.get("instruction_bound_ms"),
+        "cold_device_share_of_bytes_bound": k2_row["bound_ms"] / (cold / 1e3)}))
+    # the card's own fill_ of K2's exact output: a ceiling for its stores,
+    # not a library time (no PyTorch call computes K2's function)
+    out2 = torch.empty((a, v), dtype=torch.float32, device=dev)
+    fill2 = lambda: out2.fill_(0.0)
+    fill_warm, fill_cold = cuda_ms(torch, fill2), cold_ms(torch, fill2, flush)
+    try:
+        fill_dev = {"device_us_warm": device_us(torch, fill2, "FillFunctor<float>"),
+                    "device_us_cold": device_us(torch, fill2, "FillFunctor<float>",
+                                                between=flush)}
+    except Failure as exc:   # the profiler names the fill otherwise
+        fill_dev = {"device_us": f"not measured: {exc}"}
+    log(json.dumps({
+        "ceiling": "fill_ of K2's output", "shape": [a, v],
+        "bytes": out2.numel() * 4, "ms_warm": fill_warm, "ms_cold": fill_cold,
+        **fill_dev, "tb_per_s_cold": out2.numel() * 4 / fill_cold / 1e9,
+        "k2_cold_device_share_of_fill_cold": fill_cold / (cold / 1e3)}))
+    del out2, flush_buf
+
+    # K3 beside the least launch, each through its wrapper, in turns
+    floor = lambda: KC.launch_floor(p6, m_ref)
+    k3 = lambda: KC.default_beta(p6, m_ref)
+    got = {}
+    for what, measure in (("device_us", lambda f, n: device_us(torch, f, n)),
+                          ("cuda_ms", lambda f, n: cuda_ms(torch, f)),
+                          ("host_us", lambda f, n: host_us(torch, f))):
+        got[what] = in_turns({
+            "launch_floor": lambda: measure(floor, "launch_floor_k"),
+            "default_beta": lambda: measure(k3, DEVICE_KERNELS["default_beta"][0])})
+    log(json.dumps({"launch_floor": "one block of 32 threads writing one "
+                    "float, through a wrapper shaped like K3's", "A": a,
+                    **{f"{k}_{w}": got[w][k] for w in got for k in got[w]},
+                    "k3_over_floor": {w: got[w]["default_beta"] / got[w]["launch_floor"]
+                                      for w in got}}))
+
+    # K3 as the main path calls it: the backend's beta on the phase-3
+    # suite and reference column, by a host clock ending in the D2H
+    be = KC.CudaBackend(dev)
+    pb = core.ProfileBatch.from_profiles(p3["profiles"])
+    p_rows, ref = pb.arrays(), p3["result"].machines.select(0).arrays()
+    call_ms = host_ms_median(torch, lambda: be.default_beta(p_rows, ref))
+    log(json.dumps({"backend_beta": "CudaBackend.default_beta", "A": a,
+                    "host_ms_median_of_200": call_ms}))
 
 
 # --------------------------------------------------------------------------- #
@@ -936,10 +1094,11 @@ def device_split(torch, fn):
                 idle_share=(1 - busy / wall_ms) if n else None, busy_ms_by_group=groups)
 
 
-def device_us(torch, fn, name, n=50):
+def device_us(torch, fn, name, n=50, between=None):
     """Median device time, in microseconds, of the kernels whose name holds
     ``name`` over ``n`` calls of ``fn`` under ``torch.profiler``: for a
-    launch too short for CUDA events around the host's calls."""
+    launch too short for CUDA events around the host's calls.  ``between``,
+    when given, runs before each call (an L2 flush, for a cold launch)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -947,12 +1106,16 @@ def device_us(torch, fn, name, n=50):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
+            if between is not None:
+                between()
             fn()
         torch.cuda.synchronize()
     times = [e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == DeviceType.CUDA and name in e.name]
     # the profiler may drop an event at the edge of its window
-    check(len(times) >= n // 2, f"the profiler saw {len(times)} of {n} {name} launches")
+    check(len(times) >= n // 2, f"the profiler saw {len(times)} of {n} {name} "
+          "launches; it saw " + repr(sorted({e.name[:120] for e in prof.events()
+                                             if e.device_type == DeviceType.CUDA})))
     return statistics.median(times)
 
 
@@ -1578,11 +1741,11 @@ def main() -> int:
                 if "congruence_cu" in fn:
                     f.write(f"Function : {fn}\n")
                     f.writelines(f"  /*{a:04x}*/ {t} ;\n" for a, t in instrs)
-        for kernel in ("congruence_k", "sweep_stats_k"):
-            # the instantiation phase 5 times: serial timing, clamp on
-            found = ([fn for fn in fns if f"{kernel}ILb0ELb1E" in fn]
+        for kernel, (inst, marker, per_cell) in SASS_LOOPS.items():
+            found = ([fn for fn in fns if f"{kernel}{inst}" in fn]
                      or [fn for fn in fns if kernel in fn])
-            sass_loops[kernel] = cell_loop(fns[found[0]]) if found else None
+            sass_loops[kernel] = (cell_loop(fns[found[0]], marker, per_cell)
+                                  if found else None)
             log(f"phase 1: SASS cell loop of {kernel}: " + (
                 "not found" if not sass_loops[kernel] else
                 "{:.1f} instructions a cell ({} in the loop, {} cells an "

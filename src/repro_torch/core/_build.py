@@ -47,6 +47,7 @@ _SIGNATURES = {
     "repro_congruence": [_P, _I, _P, _I, _P, _I, _F, _I, _P],
     "repro_step_time": [_P, _I, _P, _I, _P, _I, _P],
     "repro_default_beta": [_P, _I, _P, _P, _P],
+    "repro_launch_floor": [_P, _P],
     "repro_sweep_stats": [_P, _I, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P],
     # q, k, v, o; B, H, K, S, T, D; (batch, head, position) strides of
     # q, k, v, o; causal, has_window, window, scale, dtype, stream
@@ -132,8 +133,11 @@ def build() -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on the first call."""
+    """The loaded kernel library, built on the first call (under a lock;
+    once it is loaded, every call returns it without the lock)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))

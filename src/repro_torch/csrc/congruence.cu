@@ -20,8 +20,10 @@
 // alpha_compute, alpha_memory, alpha_interconnect, LBCS, HRCS, ICS,
 // aggregate.
 //
-// K1 and K4 are instantiated for each timing model and clamp setting, so
-// their per-cell loops carry no branch on either.
+// K1, K2 and K4 are instantiated for each timing model (K1 and K4 also
+// for each clamp setting), so their per-cell loops carry no branch on
+// either.  K1, K2 and K3 round every operation where and as their plain
+// float32 versions do, so they equal them bit for bit, NaN included.
 //
 // Build without --use_fast_math: Eq. 1 relies on IEEE division and on the
 // exact denom == 0, pod != 0 and valid branches of the shared math
@@ -37,12 +39,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;        // K1-K2: one thread per variant
-constexpr int kAppTile = 1024;       // K2: apps staged per block, 4 * 4 KB
+constexpr int kThreads = 256;        // K1-K2, K4: threads a block
 constexpr int kAppGroup = 4;         // K1: apps per block
 constexpr int kOutRows = 8;          // K1: output rows, one warp each
 constexpr int kTile = kThreads - 32;   // K1: variants a block writes a row
 constexpr int kTileRow = kThreads + 4;  // K1: a row of the shared tile
+constexpr int kStepApps = 16;        // K2: apps per block
 constexpr int kStatVariants = 64;    // K4: variants per block ...
 constexpr int kStatGroups = kThreads / kStatVariants;  // ... x 4 app groups
 constexpr int kStatPass = 64;        // K4: apps staged and reduced per pass
@@ -87,15 +89,28 @@ __device__ __forceinline__ float combine(float tc, float tm, float ti,
 // The guarded quotients (pod != 0 here, denom == 0 in eq1) are computed
 // either way and then selected, which gives the same values as a branch
 // and keeps the cell loop free of branches around each division.
+__device__ __forceinline__ void raw_terms(float flops, float mem, float coll,
+                                          float pod, const Machine& mm,
+                                          float& rc, float& rm, float& ri) {
+  rc = flops / mm.peak;
+  rm = mem / mm.hbm;
+  const float q_pod = pod / mm.inter_pod;
+  const float t_pod = (pod != 0.0f) ? q_pod : 0.0f;
+  ri = (coll - pod) / mm.ici_total + t_pod;
+}
+
 __device__ __forceinline__ void raw_terms(const float* p, int s, int a,
                                           const Machine& mm, float& rc,
                                           float& rm, float& ri) {
-  const float pod = p[3 * s + a];
-  rc = p[a] / mm.peak;
-  rm = p[s + a] / mm.hbm;
-  const float q_pod = pod / mm.inter_pod;
-  const float t_pod = (pod != 0.0f) ? q_pod : 0.0f;
-  ri = (p[2 * s + a] - pod) / mm.ici_total + t_pod;
+  raw_terms(p[a], p[s + a], p[2 * s + a], p[3 * s + a], mm, rc, rm, ri);
+}
+
+// The serial or overlapped step time of one cell, each scaled term
+// rounded on its own as the plain version rounds it.
+__device__ __forceinline__ float step_cell(float rc, float rm, float ri,
+                                           const Machine& mm, bool overlap) {
+  return combine(__fmul_rn(mm.sc, rc), __fmul_rn(mm.sm, rm),
+                 __fmul_rn(mm.si, ri), overlap);
 }
 
 __device__ __forceinline__ float eq1(float alpha, float gamma, float beta,
@@ -246,42 +261,70 @@ congruence_k(const float* __restrict__ p, int A, const float* __restrict__ m,
   }
 }
 
-// K2.  Bound by the 4 bytes per cell it writes; K1's loop with one output.
+// K2: the (A, V) step times.  Bound on this card by its instructions: 4
+// IEEE divisions a cell (MUFU.RCP, FCHK, five FFMAs and a branch past the
+// slow path each) put its SASS instruction bound above its 4-byte-a-cell
+// byte bound.  Thread per variant, the machine in registers, a block's 16
+// apps staged in shared memory as float4s (one broadcast load a cell, the
+// output walked by a pointer): the fewest instructions a cell of the
+// designs measured on the H100.  Its rows start wherever a * V puts them,
+// so a warp's 32 stores split two lines; there those stores cost it
+// nothing measurable, and two whole-line designs (K1's staged tile, and
+// line stores from a staged machine), with more instructions a cell, ran
+// slower (PERF.md).  The 1-D grid walks the app groups fastest, so the
+// blocks that read one variant tile's machine columns run side by side.
+template <bool kOverlap>
 __global__ void __launch_bounds__(kThreads)
 step_time_k(const float* __restrict__ p, int A, const float* __restrict__ m,
-            int V, float* __restrict__ out, int overlap) {
-  __shared__ float sp[4 * kAppTile];
-  const int a0 = blockIdx.y * kAppTile;
-  const int na = min(kAppTile, A - a0);
-  stage(sp, p, 4, A, a0, na, kAppTile);
+            int V, float* __restrict__ out, int ngroups) {
+  __shared__ float4 sp[kStepApps];
+  const int a0 = (blockIdx.x % ngroups) * kStepApps;
+  const int na = min(kStepApps, A - a0);
+  if ((int)threadIdx.x < na) {
+    const int a = a0 + threadIdx.x;
+    sp[threadIdx.x] = make_float4(p[a], p[A + a], p[2 * (size_t)A + a],
+                                  p[3 * (size_t)A + a]);
+  }
   __syncthreads();
-  const int v = blockIdx.x * kThreads + threadIdx.x;
+  const int v = (blockIdx.x / ngroups) * kThreads + threadIdx.x;
   if (v >= V) return;
   const Machine mm = load_machine(m, V, v);
-  for (int a = 0; a < na; ++a) {
+  float* o = out + (size_t)a0 * V + v;
+  for (int a = 0; a < na; ++a, o += V) {
+    const float4 q = sp[a];
     float rc, rm, ri;
-    raw_terms(sp, kAppTile, a, mm, rc, rm, ri);
-    out[(size_t)(a0 + a) * V + v] =
-        combine(mm.sc * rc, mm.sm * rm, mm.si * ri, overlap);
+    raw_terms(q.x, q.y, q.z, q.w, mm, rc, rm, ri);
+    *o = step_cell(rc, rm, ri, mm, kOverlap);
   }
 }
 
-// K3.  A few bytes per app: bound by the launch itself.  One block, one
-// thread per app, against machine column 0 (serial baseline, as the
-// shared default_beta_kernel).
+// K3.  A few bytes per app: bound by the launch itself (PERF.md measures
+// the least launch beside it).  One block, one thread per app, against
+// machine column 0 (serial baseline, as the shared default_beta_kernel).
+// A thread issues all of its global loads before its first division, so
+// they overlap rather than wait one behind another.
 __global__ void default_beta_k(const float* __restrict__ p, int A,
                                const float* __restrict__ m,
                                float* __restrict__ out) {
   const Machine mm = load_machine(m, 1, 0);
   for (int a = threadIdx.x; a < A; a += blockDim.x) {
+    const float flops = p[a], mem = p[A + a], coll = p[2 * A + a],
+                pod = p[3 * A + a], mf = p[4 * A + a], nd = p[5 * A + a];
     float rc, rm, ri;
-    raw_terms(p, A, a, mm, rc, rm, ri);
-    const float gamma_ref = (mm.sc * rc + mm.sm * rm) + mm.si * ri;
-    const float mf = p[4 * A + a], nd = p[5 * A + a];
+    raw_terms(flops, mem, coll, pod, mm, rc, rm, ri);
+    const float gamma_ref = (__fmul_rn(mm.sc, rc) + __fmul_rn(mm.sm, rm)) +
+                            __fmul_rn(mm.si, ri);
     out[a] = (mf > 0.0f && nd > 0.0f)
-                 ? nan_min(mf / (nd * mm.peak), 0.5f * gamma_ref)
-                 : 0.05f * gamma_ref;
+                 ? nan_min(mf / __fmul_rn(nd, mm.peak), __fmul_rn(0.5f, gamma_ref))
+                 : __fmul_rn(0.05f, gamma_ref);
   }
+}
+
+// The least launch: one block of 32 threads that writes one float.  No
+// sweep path runs it; it is timed beside K3 as the floor under any launch
+// on the card.
+__global__ void launch_floor_k(float* __restrict__ out) {
+  if (threadIdx.x == 0) out[0] = 0.0f;
 }
 
 // K4, first pass.  Bound by its arithmetic (about 50 float operations per
@@ -404,8 +447,6 @@ stats_merge_k(const float* __restrict__ part_val,
   }
 }
 
-int grid_x(int V) { return (V + kThreads - 1) / kThreads; }
-
 }  // namespace
 
 extern "C" {
@@ -428,9 +469,13 @@ int repro_congruence(const float* p, int A, const float* m, int V, float* out,
 
 int repro_step_time(const float* p, int A, const float* m, int V, float* out,
                     int overlap, void* stream) {
-  const dim3 grid(grid_x(V), (A + kAppTile - 1) / kAppTile);
-  step_time_k<<<grid, kThreads, 0, (cudaStream_t)stream>>>(p, A, m, V, out,
-                                                           overlap);
+  // a 1-D grid: ngroups app groups (fastest) x the variant tiles
+  const int ngroups = (A + kStepApps - 1) / kStepApps;
+  const long long nblocks = (long long)ngroups * ((V + kThreads - 1) / kThreads);
+  if (nblocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  const auto kernel = overlap ? &step_time_k<true> : &step_time_k<false>;
+  kernel<<<(unsigned)nblocks, kThreads, 0, (cudaStream_t)stream>>>(p, A, m, V,
+                                                                   out, ngroups);
   return (int)cudaGetLastError();
 }
 
@@ -438,6 +483,11 @@ int repro_default_beta(const float* p, int A, const float* m, float* out,
                        void* stream) {
   const int threads = A < 1024 ? ((A + 31) / 32) * 32 : 1024;
   default_beta_k<<<1, threads, 0, (cudaStream_t)stream>>>(p, A, m, out);
+  return (int)cudaGetLastError();
+}
+
+int repro_launch_floor(float* out, void* stream) {
+  launch_floor_k<<<1, 32, 0, (cudaStream_t)stream>>>(out);
   return (int)cudaGetLastError();
 }
 

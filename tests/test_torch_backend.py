@@ -17,6 +17,8 @@ and skip here with the reason.
 """
 
 import dataclasses
+import re
+import threading
 
 import numpy as np
 import pytest
@@ -28,6 +30,7 @@ from repro.core import sweep as RS
 
 import repro_torch.core as P
 from repro_torch import carry
+from repro_torch.core import _build
 from repro_torch.core import kernels_cuda as KC
 from repro_torch.core import kernels_xp as PK
 
@@ -554,6 +557,229 @@ def test_wrappers_reject_bad_stacks():
         KC.congruence(p.to("meta"), m.to("meta"))
 
 
+def _wrapper_calls():
+    """Each wrapper as a call on (profile stack, machine stack, timing
+    model), with the profile rows it takes."""
+    return {
+        "congruence": (lambda p, m, tm: KC.congruence(p, m, tm), KC.P_ROWS),
+        "step_time": (lambda p, m, tm: KC.step_time(p, m, tm), 6),
+        "default_beta": (lambda p, m, tm: KC.default_beta(p, m), 6),
+        "sweep_stats": (lambda p, m, tm: KC.sweep_stats(p, m, tm), KC.P_ROWS),
+        "launch_floor": (lambda p, m, tm: KC.launch_floor(p, m), 6),
+    }
+
+
+#: (what is wrong, the error's words): each bad input every wrapper rejects
+BAD_INPUTS = {
+    "machine rows": "machine stack",
+    "machine 3-d": "machine stack",
+    "profile rows": "profile stack",
+    "profile 1-d": "profile stack",
+    "mixed devices": "different devices",
+    "meta device": "no kernel for device",
+}
+
+
+def _bad(case, p_rows):
+    p, m = torch.ones(p_rows, 3), torch.ones(8, 5)
+    return {"machine rows": lambda: (p, torch.ones(7, 5)),
+            "machine 3-d": lambda: (p, torch.ones(8, 5, 1)),
+            "profile rows": lambda: (torch.ones(p_rows - 1, 3), m),
+            "profile 1-d": lambda: (torch.ones(3), m),
+            "mixed devices": lambda: (p, m.to("meta")),
+            "meta device": lambda: (p.to("meta"), m.to("meta"))}[case]()
+
+
+@pytest.mark.parametrize("case", sorted(BAD_INPUTS))
+@pytest.mark.parametrize("wrapper", sorted(_wrapper_calls()))
+def test_each_wrapper_rejects_each_bad_input(wrapper, case):
+    call, p_rows = _wrapper_calls()[wrapper]
+    p, m = _bad(case, p_rows)
+    with pytest.raises(ValueError, match=BAD_INPUTS[case]):
+        call(p, m, "serial")
+
+
+@pytest.mark.parametrize("wrapper", ["congruence", "step_time", "sweep_stats"])
+def test_wrappers_reject_an_unknown_timing_model(wrapper):
+    call, p_rows = _wrapper_calls()[wrapper]
+    with pytest.raises(ValueError, match="timing model"):
+        call(torch.ones(p_rows, 3), torch.ones(8, 5), "bogus")
+
+
+def test_default_beta_rejects_a_missing_reference_column():
+    with pytest.raises(ValueError, match="reference machine column"):
+        KC.default_beta(torch.ones(6, 3), torch.ones(8, 0))
+    _, port_p = both_profiles(profile_dicts(3, seed=1))
+    empty = PK.MachineArrays(*(np.zeros(0) for _ in range(8)))
+    with pytest.raises(ValueError, match="reference machine column"):
+        KC.pack_beta(P.ProfileBatch.from_profiles(port_p).arrays(), empty)
+
+
+def test_library_is_returned_without_the_lock_once_loaded(monkeypatch):
+    class Refuse:
+        def __enter__(self):
+            raise AssertionError("the lock was taken")
+
+        def __exit__(self, *exc):
+            return False
+
+    lib = object()
+    monkeypatch.setattr(_build, "_lib", lib)
+    monkeypatch.setattr(_build, "_lock", Refuse())
+    assert _build.lib() is lib
+
+
+def test_entry_points_are_looked_up_once(monkeypatch):
+    loads = []
+
+    class Lib:
+        repro_step_time = object()
+
+    def fake_lib():
+        loads.append(1)
+        return Lib
+
+    monkeypatch.setattr(_build, "lib", fake_lib)
+    monkeypatch.setattr(KC, "_entry_points", {})
+    assert KC._fn("repro_step_time") is Lib.repro_step_time
+    assert KC._fn("repro_step_time") is Lib.repro_step_time
+    assert loads == [1]
+
+
+# --------------------------------------------------------------------------- #
+# K3 through the backend: one packed host buffer, one H2D copy
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("which", ["random", "degenerate"])
+@pytest.mark.parametrize("ref_col", [0, 1, 2])
+def test_packed_beta_equals_plain_f32_and_numpy(which, ref_col):
+    """``CudaBackend.default_beta`` packs the six profile rows and the
+    reference column into one buffer; on the CPU its views go to the plain
+    version, which must give exactly the plain float32 beta of the same
+    rows, and the NumPy reference's beta to float32 tolerance, degenerate
+    apps (no model FLOPs, no pod traffic, all zeros) included."""
+    dicts = (profile_dicts(9, seed=ref_col) if which == "random"
+             else _degenerate_dicts())
+    ref_p, port_p = both_profiles(dicts)
+    ref_m, port_m = both_machines(20, seed=ref_col)
+    pb = P.ProfileBatch.from_profiles(port_p)
+    ref_col_arrays = port_m.select(ref_col).arrays()
+    host = KC.pack_beta(pb.arrays(), ref_col_arrays)
+    a = len(dicts)
+    assert host.dtype == np.float32 and host.shape == (6 * a + 8,)
+    p_view, m_view = KC.beta_views(torch.from_numpy(host))
+    assert p_view.shape == (6, a) and m_view.shape == (8, 1)
+    assert p_view.is_contiguous() and m_view.is_contiguous()
+
+    got = cuda_on_cpu().default_beta(pb.arrays(), ref_col_arrays)
+    p32 = torch.as_tensor(np.stack([np.asarray(r, np.float32) for r in pb.arrays()]))
+    m32 = torch.as_tensor(np.stack([np.asarray(r, np.float32)
+                                    for r in port_m.arrays()]))[:, ref_col:ref_col + 1]
+    want = KC.plain_default_beta(p32, m32).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    numpy_ref = RS.default_beta_batched(ref_p, ref_m, beta_ref=ref_col,
+                                        backend="numpy")
+    np.testing.assert_allclose(got, numpy_ref, rtol=F32_TOL, atol=0)
+    np.testing.assert_array_equal(
+        P.default_beta_batched(port_p, port_m, beta_ref=ref_col,
+                               backend=cuda_on_cpu()), got)
+    if which == "degenerate":
+        assert got[-1] == 0.0   # "idle": no work, no bytes, beta 0
+
+
+# --------------------------------------------------------------------------- #
+# The row partitions of K1 (whole lines) and K2 (NumPy models of the
+# kernels' index arithmetic, with the constants read from the CUDA source)
+# --------------------------------------------------------------------------- #
+
+
+def _cu_constant(name):
+    src = (_build.CSRC / "congruence.cu").read_text()
+    m = re.search(rf"constexpr int {name} = ([^;]+);", src)
+    assert m, name
+    expr = m.group(1)
+    for other in re.findall(r"\bk[A-Z]\w*", expr):
+        expr = expr.replace(other, str(_cu_constant(other)))
+    return int(eval(expr, {}))
+
+
+def _tile_ranges(row_base, V):
+    """Rows starting at float offsets ``row_base`` (shape (R,)) under K1's
+    staged-tile partition: for each row and
+    block, the variant range [lo, hi) it writes, the first and last tile
+    slot it reads, and whether its 16-byte stores land on 16-byte offsets;
+    the range starts on a line boundary of the row."""
+    tile, threads, trow = (_cu_constant("kTile"), _cu_constant("kThreads"),
+                           _cu_constant("kTileRow"))
+    nblocks = -(-V // tile)
+    shift = (row_base % 32)[:, None]
+    first = (np.arange(nblocks) * tile)[None, :]
+    last = (np.arange(nblocks) == nblocks - 1)[None, :]
+    start = first - shift
+    k0 = np.maximum(0, -start)
+    k1 = np.where(last, V, np.minimum(V, start + tile)) - start
+    lo, hi = start + k0, start + np.maximum(k1, k0)
+    # slot of variant x: (shift & 3) + x - first + 32, which the block's
+    # thread x - first + 32 in [0, threads) computed
+    j_lo, j_hi = lo - first + 32, hi - 1 - first + 32
+    live = hi > lo
+    assert (j_lo[live] >= 0).all() and (j_hi[live] < threads).all()
+    assert ((shift & 3) + j_hi)[live].max(initial=0) < trow
+    # the range's element 0 (variant start) sits on a line boundary of the
+    # output, so every 16-byte store (k a multiple of 4) is 16-byte aligned
+    # and a warp's 128 consecutive floats fill whole lines
+    assert ((row_base[:, None] + start) % 32 == 0).all()
+    # the tile side of a 16-byte load: slot 32 - (shift & ~3) + k
+    assert ((32 - (shift & ~3)) % 4 == 0).all()
+    return lo, hi
+
+
+def _thread_ranges(row_base, V):
+    """K2's thread-per-variant kernel: block t's thread j writes variant
+    256 t + j of every row of its app group, if below V."""
+    threads = _cu_constant("kThreads")
+    first = np.arange(-(-V // threads)) * threads
+    lo = np.broadcast_to(first[None, :], (len(row_base), len(first)))
+    return lo, np.minimum(lo + threads, V)
+
+
+def _assert_partition(lo, hi, V):
+    """Each row's ranges, in order, cover [0, V) once: every element of
+    every row is written exactly once."""
+    length = np.maximum(hi - lo, 0)
+    assert (length.sum(axis=1) == V).all()
+    for r in range(lo.shape[0]):
+        live = length[r] > 0
+        l, h = lo[r][live], hi[r][live]
+        assert l[0] == 0 and h[-1] == V and (l[1:] == h[:-1]).all()
+
+
+GEOMETRIES = {
+    # (output rows per app, partition, the constant of its app group): K1
+    # writes 8 rows per app
+    "k1_tile": (8, _tile_ranges, "kAppGroup"),
+    "k2_thread": (1, _thread_ranges, "kStepApps"),
+}
+
+
+@pytest.mark.parametrize("V", [1, 31, 33, 223, 224, 225, 100_003])
+@pytest.mark.parametrize("A", [1, 7, 8, 9, 64, 65])
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_row_partition_writes_each_element_once(geometry, A, V):
+    rows_per_app, ranges, group_name = GEOMETRIES[geometry]
+    # the kernel's own rows, then a row at every residue mod 32
+    for base in (np.arange(rows_per_app * A, dtype=np.int64) * V,
+                 np.arange(32, dtype=np.int64) + 32 * V):
+        lo, hi = ranges(base, V)
+        _assert_partition(lo, hi, V)
+    # the 1-D grid's app groups (fastest) cover every app once
+    group = _cu_constant(group_name)
+    apps = np.arange(-(-A // group))[:, None] * group + np.arange(group)
+    assert sorted(apps[apps < A].tolist()) == list(range(A))
+
+
 # --------------------------------------------------------------------------- #
 # Kernel launches (need the card)
 # --------------------------------------------------------------------------- #
@@ -592,10 +818,11 @@ def _conditioned(want, beta, limit=1e3):
 
 #: (A, V) around the sweep kernels' tiles: K1 writes 4 apps x 224 variants
 #: a block (256 computed), K4 takes 64 variants x 4 app groups, its apps
-#: staged 64 at a time
+#: staged 64 at a time; K2 takes 16 apps x 256 variants a block
 CARD_SHAPES = [(5, 1), (5, 127), (5, 129), (5, 4099), (3, 223), (4, 224),
                (5, 225), (9, 449), (3, 63), (4, 64), (7, 65), (8, 255),
-               (63, 257), (65, 4099), (257, 2113)]
+               (63, 257), (65, 4099), (257, 2113), (15, 255), (16, 256),
+               (17, 257)]
 
 
 @pytest.mark.cuda
@@ -606,10 +833,11 @@ def test_kernels_match_plain_on_card(cuda_device, a, v):
     for tm in ("serial", "overlap"):
         for clamp in (False, True):
             out = KC.congruence(p, m, tm, clamp=clamp)
-            # every cell against the plain float32 version ...
+            # every cell equal to the plain float32 version (the kernel
+            # rounds each operation as it does) ...
             torch.testing.assert_close(
                 out, KC.plain_congruence(p, m, tm, clamp=clamp),
-                rtol=F32_TOL, atol=F32_TOL)
+                rtol=0, atol=0, equal_nan=True)
             # ... and against float64 where float32 Eq. 1 is well conditioned
             want = KC.plain_congruence(p.double(), m.double(), tm, clamp=clamp)
             ok = _conditioned(want, p.double()[6])
@@ -627,10 +855,10 @@ def test_kernels_match_plain_on_card(cuda_device, a, v):
             torch.testing.assert_close(mean, kmean, rtol=1e-5, atol=1e-7)
         torch.testing.assert_close(
             KC.step_time(p[:6].contiguous(), m, tm),
-            KC.plain_step_time(p, m, tm), rtol=F32_TOL, atol=0.0)
+            KC.plain_step_time(p, m, tm), rtol=0, atol=0, equal_nan=True)
     torch.testing.assert_close(KC.default_beta(p[:6].contiguous(), m),
                                KC.plain_default_beta(p, m),
-                               rtol=F32_TOL, atol=0.0)
+                               rtol=0, atol=0, equal_nan=True)
     torch.cuda.synchronize()
     assert KC.launch_counts() == {"congruence": 4, "step_time": 2,
                                   "default_beta": 1, "sweep_stats": 4}
