@@ -7,10 +7,12 @@ Phases (any failure raises and the exit code is not 0):
 
   1. print the card (``nvidia-smi``), build the kernels from
      ``src/repro_torch/csrc`` with nvcc for sm_90a (one nvcc per source,
-     all at once), log ptxas's registers and spills and, where
-     ``cuobjdump`` exists, check that the tensor-core K5 kernel's SASS has
-     HGMMA and count the SASS instructions of K1's, K2's and K4's per-cell
-     loops (written to ``build/congruence.sass``);
+     all at once), log ptxas's registers and spills (and, for each
+     instantiation of the FMA K5 kernel, its shared memory; none may spill)
+     and, where ``cuobjdump`` exists, check that
+     the tensor-core K5 kernel's SASS has HGMMA and count the SASS
+     instructions of K1's, K2's and K4's per-cell loops (written to
+     ``build/congruence.sass``);
   2. hold each sweep kernel (K1 congruence, K2 step time, K3 default beta,
      K4 sweep statistics) against its plain PyTorch version on the card,
      at A in {1, 3, 64} x V in {1, 127, 128, 129, 513, 100003} and at the
@@ -39,13 +41,15 @@ Phases (any failure raises and the exit code is not 0):
      split;
   6. hold both K5 (flash attention) kernels against the plain version on
      the card: B in {1, 2} x (H, K) in {(4, 4), (8, 2), (32, 2)} x D in
-     {64, 128} x S = T in {1, 127, 128, 129, 255, 256, 257, 2048} x causal
-     window {None, 64}, plus non-causal S=127, T=300, in f32 (2e-4) and bf16
-     (2e-2), and at the model's strided layout; bf16 must take the
-     tensor-core kernel (wgmma + TMA), f32 the FMA kernel; then time at the
-     model's shape the tensor-core kernel, the FMA kernel on the same bf16
-     tensors (the earlier design, for the record), the plain version, SDPA
-     and the bound, and the FMA kernel in f32 beside its own;
+     {64, 128} (and, in bf16, the FMA kernel's {32, 80, 256}) x S = T in
+     {1, 63, 64, 65, 127, 128, 129, 255, 256, 257, 2048} x causal window
+     {None, 64}, plus non-causal S=127, T=300, in f32 (2e-4) and bf16
+     (2e-2), and at the model's strided layout; bf16 at D 64 / 128 must
+     take the tensor-core kernel (wgmma + TMA), the rest the FMA kernel;
+     then time at the model's shape the tensor-core kernel, the FMA kernel
+     on the same bf16 tensors (for the record), the plain version, SDPA
+     and the bound, and the FMA kernel in f32 beside its own; and the FMA
+     kernel at paligemma-3b's attention shape (D 256) in f32 and bf16;
   7. main path, the model stack: chatglm3-6b at full width and depth
      (28 layers, weights drawn on the card, bf16 compute), ``forward`` and
      ``loss_fn`` on 4 x 2048 seeded tokens with ``attn_impl="pallas"`` (28
@@ -147,15 +151,18 @@ FA_WGMMA_SOURCE = "src/repro_torch/csrc/flash_attention_sm90.cu"
 FA_REPLACES = "src/repro/kernels/flash_attention.py:30"
 FA_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # tests/test_kernels.py
 #: Phase 6's grid: the model path's shapes and its neighbours, with ragged
-#: edges around the FMA kernel's 64-row and the tensor-core kernel's
-#: 128-row tiles.
+#: edges around both kernels' 128-row query tiles and the FMA kernel's
+#: 64-row ones (head dims above 128) and 64-key tiles.
 FA_BATCH = (1, 2)
 FA_HEADS = ((4, 4), (8, 2), (32, 2))
 FA_HEAD_DIM = (64, 128)
 #: bf16 head dims the route sends to the FMA kernel (paligemma and
 #: recurrentgemma have 256), held on the same grid
 FA_FMA_BF16_HEAD_DIM = (32, 80, 256)
-FA_SEQ = (1, 127, 128, 129, 255, 256, 257, 2048)
+FA_SEQ = (1, 63, 64, 65, 127, 128, 129, 255, 256, 257, 2048)
+#: paligemma-3b's attention (B 4, H 8, K 1, S = T 2048, D 256, causal): the
+#: FMA kernel's head dim 256, timed in f32 and bf16
+PALIGEMMA_FA = (4, 8, 1, 2048, 256)
 #: The model path: chatglm3-6b, B x S tokens in bf16 compute; the decode
 #: step is timed over a cache of DECODE_CACHE positions.
 MODEL_ARCH, MODEL_B, MODEL_S, DECODE_CACHE = "chatglm3-6b", 4, 2048, 2048
@@ -241,6 +248,46 @@ def bound(kind: str, a: int, v: int, clamp: bool = True):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_report(log: str):
+    """ptxas's ``-v`` report as {entry function: {registers, stack,
+    spill_stores, spill_loads}} (bytes, registers a thread)."""
+    import re
+
+    out, entry, fn = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = fn = m.group(1)
+            out.setdefault(entry, {})
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn in out:
+            out[fn].update(stack=int(m[1]), spill_stores=int(m[2]),
+                           spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry in out:
+            out[entry]["registers"] = int(m[1])
+    return out
+
+
+def fma_instantiations(report):
+    """The FMA K5 kernel's instantiations in a ``ptxas_report``, by
+    (dtype, padded head dim)."""
+    import re
+
+    found = {}
+    for fn, props in report.items():
+        m = re.search(r"17flash_attention_kI(f|13__nv_bfloat16)Li(\d+)E", fn)
+        if m:
+            found[("float32" if m[1] == "f" else "bfloat16", int(m[2]))] = props
+    return found
 
 
 def sass_functions(sass: str):
@@ -951,9 +998,10 @@ def _wants_wgmma(q, k, v) -> bool:
 
 
 def _fma_kernel_causal(torch, q, k, v):
-    """The FMA K5 kernel, called through the library itself, on tensors the
-    route gives the tensor cores: the earlier design timed on the same bf16
-    inputs, for the record (causal, no window, the default scale)."""
+    """The FMA K5 kernel (register-tiled, cp.async-staged), called through
+    the library itself, on tensors the route gives the tensor cores: timed
+    on the same bf16 inputs, for the record (causal, no window, the default
+    scale)."""
     from repro_torch.core import _build
 
     B, H, S, D = q.shape
@@ -1038,14 +1086,43 @@ def phase_flash_attention(torch, FA, dev):
                             library_ms=library_ms,
                             max_abs_err=max(e for (kn, _), e in errs.items() if kn == kernel))
         extra = {}
-        if kernel == "wgmma":   # the earlier design on the same tensors, for the record
-            extra["fma_kernel_ms"] = cuda_ms(torch, lambda: _fma_kernel_causal(torch, qd, kd, vd))
+        if kernel == "wgmma":   # the FMA kernel on the same tensors, for the record
+            extra["fma_register_tiled_kernel_ms"] = cuda_ms(
+                torch, lambda: _fma_kernel_causal(torch, qd, kd, vd))
         log(json.dumps({"timing": f"flash_attention_{kernel}", "B": B, "H": H, "K": K,
                         "S": S, "T": S, "D": D, "dtype": dname, "causal": True,
                         "layout": "(B,S,H,D) strided views", "ms": ms, **extra,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "bytes": nbytes, "operations": ops,
                         "tflops": ops / ms / 1e9, "library_ms": library_ms,
+                        "library": "torch.nn.functional.scaled_dot_product_attention"
+                                   "(is_causal=True, enable_gqa=True)"}))
+
+    # paligemma-3b's attention: the FMA kernel at head dim 256, f32 and bf16
+    B, H, K, S, D = PALIGEMMA_FA
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        q, k, v = (rand(B, S, n, D, dtype=dtype).transpose(1, 2) for n in (H, K, K))
+        held(q, k, v, True, None, f"paligemma-3b shape, {dname}, strided views")
+        ms = cuda_ms(torch, lambda: FA.flash_attention(q, k, v, causal=True))
+        plain_ms = cuda_ms(torch, lambda: FA.plain_flash_attention(q, k, v, causal=True),
+                           reps=3, rounds=3)
+        library_ms = cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+        nbytes, ops = attention_work(B, H, K, S, S, D, True, None, q.element_size())
+        # the card's bound takes bf16 inputs at the tensor-core peak; the
+        # FMA kernel's own ceiling (f32 FMAs whatever the input) beside it
+        bound_ms, bound_by = attention_bound(B, H, K, S, S, D, True, None, dname)
+        log(json.dumps({"timing": "flash_attention_fma", "shape": "paligemma-3b",
+                        "B": B, "H": H, "K": K, "S": S, "T": S, "D": D,
+                        "dtype": dname, "causal": True,
+                        "layout": "(B,S,H,D) strided views", "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by,
+                        "fma_peak_bound_ms": max(nbytes / HBM_BYTES_PER_S,
+                                                 ops / F32_OPS_PER_S) * 1e3,
+                        "bytes": nbytes,
+                        "operations": ops, "tflops": ops / ms / 1e9,
+                        "library_ms": library_ms,
                         "library": "torch.nn.functional.scaled_dot_product_attention"
                                    "(is_causal=True, enable_gqa=True)"}))
     return rows
@@ -1721,6 +1798,18 @@ def main() -> int:
     for line in _build.build_info.get("log", "").splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
+    fma = fma_instantiations(ptxas_report(_build.build_info.get("log", "")))
+    for (dname, dp), props in sorted(fma.items()):
+        log(f"phase 1: FMA K5 kernel, {dname}, head dims up to {dp}: "
+            f"{props.get('registers')} registers, "
+            f"{_build.lib().repro_flash_attention_smem_bytes(dp)} B of dynamic "
+            f"shared memory, {props.get('spill_stores')} / {props.get('spill_loads')} "
+            f"B spill stores / loads, {props.get('stack')} B stack frame")
+    check(len(fma) == 8, f"ptxas reported {len(fma)} of the FMA K5 kernel's 8 "
+          "instantiations")
+    spills = [key for key, props in fma.items()
+              if props.get("spill_stores") != 0 or props.get("spill_loads") != 0]
+    check(not spills, f"the FMA K5 kernel spills at {spills}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass_loops = {}
     if os.path.exists(cuobjdump):

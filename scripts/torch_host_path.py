@@ -152,12 +152,13 @@ def _numbers(d, prefix=""):
             yield f"{prefix}{k}", float(v)
 
 
-def against(other: str) -> int:
+def against(other: str, script: str = __file__) -> int:
     """``other``, this checkout, this checkout, ``other``: one process
-    each; every line, then this checkout's mean over ``other``'s."""
+    each of ``script --root``; every line, then this checkout's mean over
+    ``other``'s."""
     runs = []
     for root in (other, HERE, HERE, other):
-        got = subprocess.run([sys.executable, os.path.abspath(__file__),
+        got = subprocess.run([sys.executable, os.path.abspath(script),
                               "--root", root], capture_output=True, text=True,
                              timeout=900)
         if got.returncode != 0:
@@ -166,8 +167,10 @@ def against(other: str) -> int:
         line = got.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         runs.append(dict(_numbers(json.loads(line))))
-    before = {k: (runs[0][k] + runs[3][k]) / 2 for k in runs[0]}
-    after = {k: (runs[1][k] + runs[2][k]) / 2 for k in runs[1]}
+    # keys of both runs of a checkout (a cached build of an older
+    # checkout may report less)
+    before = {k: (runs[0][k] + runs[3][k]) / 2 for k in runs[0] if k in runs[3]}
+    after = {k: (runs[1][k] + runs[2][k]) / 2 for k in runs[1] if k in runs[2]}
     print(json.dumps({"order": "before, after, after, before",
                       "before": os.path.abspath(other), "after": HERE,
                       "before_mean": before, "after_mean": after,

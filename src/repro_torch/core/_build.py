@@ -32,7 +32,7 @@ SOURCES = (CSRC / "congruence.cu", CSRC / "flash_attention.cu",
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 #: No --use_fast_math: Eq. 1 needs IEEE division and exact comparisons, the
-#: FMA attention kernel uses expf and IEEE division, the scan's softplus
+#: FMA attention kernel uses exp2f and IEEE division, the scan's softplus
 #: expf/log1pf.  (The wgmma attention kernel and the scan write their 2^x as
 #: ex2.approx.ftz themselves.)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -58,6 +58,8 @@ _SIGNATURES = {
     "repro_flash_attention_sm90": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                                    _L, _I, _I, _I, _F, _P],
+    # head dim -> the FMA kernel's dynamic shared memory in bytes
+    "repro_flash_attention_smem_bytes": [_I],
     # x, scale, out; rows, d, eps, x dtype, scale dtype, vec, stream
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
     # x, residual, scale, out, h; rows, d, eps, x dtype, scale dtype, vec, stream
@@ -71,7 +73,8 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-#: What the last build did: library path, seconds, nvcc's ptxas report.
+#: What the last build did: library path, seconds, nvcc's ptxas report (kept
+#: beside the library, so a cached build reports it too).
 build_info: dict = {}
 
 
@@ -110,8 +113,10 @@ def _run(cmds):
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists."""
     out = library_path()
+    report = out.with_suffix(".ptxas.txt")
     if out.exists():
-        build_info.update(path=str(out), seconds=0.0, cached=True, log="")
+        log = report.read_text() if report.exists() else ""
+        build_info.update(path=str(out), seconds=0.0, cached=True, log=log)
         return out
     nvcc = _nvcc()
     tmp_dir = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp"
@@ -125,6 +130,8 @@ def build() -> Path:
         log += _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(lib_tmp),
                       *map(str, objs)]])
         seconds = time.perf_counter() - t0
+        (tmp_dir / report.name).write_text(log)
+        os.replace(tmp_dir / report.name, report)
         os.replace(lib_tmp, out)
     finally:
         shutil.rmtree(tmp_dir, ignore_errors=True)

@@ -1,7 +1,7 @@
 """The port stands alone: it imports nothing of JAX or of the JAX package,
-its docstring examples run, its kernels build only where nvcc is, and
-``chip_smoke.py`` refuses to report a result without a card or outside a
-checkout."""
+its docstring examples run, its kernels build only where nvcc is (and a
+cached build keeps its ptxas report), and ``chip_smoke.py`` refuses to
+report a result without a card or outside a checkout."""
 
 import ast
 import doctest
@@ -85,6 +85,46 @@ def test_kernel_build_is_keyed_on_the_source_and_needs_nvcc():
     if not path.exists():
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.build()
+
+
+def test_a_cached_build_keeps_its_ptxas_report(tmp_path, monkeypatch):
+    """chip_smoke.py's spill check reads ptxas's report; a library built
+    earlier in the same checkout reports it from the file beside it."""
+    from repro_torch.core import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    path = _build.library_path()
+    path.write_bytes(b"")
+    path.with_suffix(".ptxas.txt").write_text("ptxas info    : Used 241 registers\n")
+    assert _build.build() == path
+    assert _build.build_info["cached"] is True
+    assert _build.build_info["log"] == "ptxas info    : Used 241 registers\n"
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117flash_attention_kIfLi128EEEvPKT_S3_S3_PS1_iiiiiNS_7StridesES5_S5_S5_iiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117flash_attention_kIfLi128EEEvPKT_S3_S3_PS1_iiiiiNS_7StridesES5_S5_S5_iiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 241 registers, used 1 barriers, 436 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117flash_attention_kI13__nv_bfloat16Li256EEEvPKT_S4_S4_PS2_iiiiiNS_7StridesES6_S6_S6_iiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117flash_attention_kI13__nv_bfloat16Li256EEEvPKT_S4_S4_PS2_iiiiiNS_7StridesES6_S6_S6_iiif
+    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 436 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122flash_attention_sm90_kILi128EEEvv' for 'sm_90a'
+ptxas info    : Used 168 registers
+"""
+
+
+def test_chip_smoke_reads_the_fma_kernels_registers_and_spills_from_ptxas():
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    found = chip_smoke.fma_instantiations(chip_smoke.ptxas_report(PTXAS_LOG))
+    assert found == {
+        ("float32", 128): {"registers": 241, "stack": 0, "spill_stores": 0,
+                           "spill_loads": 0},
+        ("bfloat16", 256): {"registers": 255, "stack": 8, "spill_stores": 12,
+                            "spill_loads": 16}}
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "alone"])

@@ -6,7 +6,8 @@ relative:
 
   * K5 flash attention: 2e-4 in float32, 2e-2 in bfloat16 -- the bf16
     tolerance also for a CPU emulation of the tensor-core kernel's
-    arithmetic (P rounded to bf16 before P V);
+    arithmetic (P rounded to bf16 before P V), both for one of the FMA
+    kernel's (its tiles, live-tile loop and exp2 softmax);
   * K6 RMSNorm and K7 fused residual RMSNorm: 1e-5 in float32 (the pin of
     ``test_rmsnorm_residual``), 2e-2 in bfloat16;
   * K8 selective scan: 2e-4 in float32, 2e-2 in bfloat16 (``tol_for``),
@@ -237,6 +238,114 @@ def test_tensor_core_rounding_at_the_tile_edges(jx, shape, window):
     np.testing.assert_allclose(to_np(got), to_np(oracle), atol=2e-2, rtol=2e-2)
 
 
+# --------------------------------------------------------------------------- #
+# The FMA kernel (flash_attention.cu): its arithmetic
+# --------------------------------------------------------------------------- #
+
+
+def fma_tiles(head_dim):
+    """(query rows a CTA, keys a tile) of the FMA kernel's instantiation
+    for ``head_dim``."""
+    return (128, 64) if head_dim <= 128 else (64, 64)
+
+
+#: (B, H, K, S, T, D) at the FMA kernel's tile edges: S = T one below, at
+#: and one above the query tile, and twice it, at head dims 64, 128, 256
+FMA_EDGES = [(1, 4, 2, n, n, d) for d in (64, 128, 256)
+             for bq in [fma_tiles(d)[0]] for n in (bq - 1, bq, bq + 1, 2 * bq)]
+
+
+def emulate_fma_attention(q, k, v, *, causal=True, window=None, scale=None):
+    """The FMA kernel's arithmetic step for step in plain torch (a model
+    for these tests, on no path of the port): q, k, v converted to float32;
+    query tiles and key tiles of ``fma_tiles(D)``, visiting only the key
+    tiles the masks leave live; scores summed in float32, times
+    ``scale * log2(e)`` (one float32 constant) and masked to -1e30; an
+    online softmax in log2 units with 2^x; P V in float32; one division by
+    l at the end, rows with no live key 0."""
+    B, H, S, D = q.shape
+    K, T = k.shape[1], k.shape[2]
+    bq, bkv = fma_tiles(D)
+    neg = -1e30
+    c = (torch.tensor(scale if scale is not None else 1.0 / math.sqrt(D))
+         * torch.tensor(math.log2(math.e)))   # float32 times float32, as the host does
+    qf = q.float()
+    kf, vf = (t.float().repeat_interleave(H // K, dim=1) for t in (k, v))
+    out = torch.zeros(B, H, S, D)
+    for q0 in range(0, S, bq):
+        rows = torch.arange(q0, min(q0 + bq, S))[:, None]
+        kv_hi = min(T, q0 + bq, S) if causal else T
+        kv_lo = max(0, q0 - window + 1) if window is not None else 0
+        m = torch.full((B, H, len(rows), 1), neg)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(B, H, len(rows), D)
+        for k0 in range(kv_lo // bkv * bkv, kv_hi, bkv):
+            cols = torch.arange(k0, min(k0 + bkv, T))[None, :]
+            s = qf[:, :, rows[:, 0]] @ kf[:, :, cols[0]].transpose(-1, -2)
+            live = torch.ones(len(rows), cols.shape[1], dtype=torch.bool)
+            if causal:
+                live &= cols <= rows
+            if window is not None:
+                live &= rows - cols < window
+            t = torch.where(live, s * c, neg)
+            m_new = torch.maximum(m, t.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.where(live, torch.exp2(t - m_new), 0.0)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            acc = acc * alpha + p @ vf[:, :, cols[0]]
+            m = m_new
+        out[:, :, rows[:, 0]] = torch.where(l == 0, 0.0, acc / l)
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("causal,window", MASKS,
+                         ids=["causal", "full", "causal-window64"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", FA_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_fma_kernel_arithmetic_matches_plain_and_pallas(jx, shape, dtype, causal,
+                                                       window):
+    """The FMA kernel's tiles, live-tile loop and exp2 softmax stay within
+    the dtype's tolerance of the plain version and of the Pallas kernel."""
+    tdt, tol = DTYPES[dtype]
+    arrays = qkv(shape, seed=sum(shape))
+    tq, tk, tv = (torch.as_tensor(a).to(tdt) for a in arrays)
+    got = emulate_fma_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tdt and got.shape == tq.shape
+    want = FA.plain_flash_attention(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(to_np(got), to_np(want), atol=tol, rtol=tol)
+    B, H, K, S, T, D = shape
+    if causal and S != T:
+        return   # the Pallas kernel's tests leave this layout out too
+    jq, jk, jv = (jx.np.asarray(a, jx.dtypes[tdt]) for a in arrays)
+    pallas = jx.ops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                    block_q=_block(S), block_kv=_block(T),
+                                    interpret=True)
+    np.testing.assert_allclose(to_np(got), to_np(pallas), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("window", [None, 64], ids=["causal", "causal-window64"])
+@pytest.mark.parametrize("shape", FMA_EDGES, ids=lambda s: "x".join(map(str, s)))
+def test_fma_kernel_arithmetic_at_the_tile_edges(jx, shape, window):
+    arrays = qkv(shape, seed=sum(shape))
+    tq, tk, tv = (torch.as_tensor(a) for a in arrays)
+    got = emulate_fma_attention(tq, tk, tv, causal=True, window=window)
+    want = FA.plain_flash_attention(tq, tk, tv, causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-4, rtol=2e-4)
+    oracle = jx.ref.flash_attention_ref(*(jx.np.asarray(a) for a in arrays),
+                                        causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), atol=2e-4, rtol=2e-4)
+
+
+def test_fma_kernel_arithmetic_zeroes_rows_with_no_live_key_and_takes_any_scale():
+    q, k, v = (torch.as_tensor(a) for a in qkv((1, 2, 1, 8, 8, 16), seed=3))
+    out = emulate_fma_attention(q, k, v, causal=True, window=0)
+    assert torch.equal(out, torch.zeros_like(out))
+    for scale in (-0.3, 0.0):   # the route gives these to the FMA kernel
+        got = emulate_fma_attention(q, k, v, causal=False, scale=scale)
+        want = FA.plain_flash_attention(q, k, v, causal=False, scale=scale)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-4, rtol=2e-4)
+
+
 ALIGNED = [0x7f0000000000 + 0x100000 * i for i in range(4)]
 #: (batch, head, position) strides of q, k, v, out in the model's layout,
 #: chatglm3-6b (H 32, K 2, D 128, S 2048), dims of extent 1 left out
@@ -324,6 +433,16 @@ def test_wrapper_launches_the_routed_kernel_and_counts_it(monkeypatch, dtype, D,
 # --------------------------------------------------------------------------- #
 
 
+CARD_SHAPES = FA_SHAPES + [(2, 32, 2, 129, 129, 128), (1, 4, 4, 1, 1, 64),
+                           (1, 4, 2, 255, 255, 128), (1, 4, 2, 256, 256, 64),
+                           (1, 4, 2, 257, 257, 128), (1, 4, 2, 257, 257, 256),
+                           (2, 8, 2, 129, 129, 80)]
+#: ... and the FMA kernel's tile edges: its query tiles (FMA_EDGES, which
+#: at head dim 256 are its 64-key tiles' too) and its 64-key tiles below
+CARD_SHAPES += [sh for sh in FMA_EDGES + [(1, 4, 2, 63, 63, 128), (1, 4, 2, 65, 65, 64)]
+                if sh not in CARD_SHAPES]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -334,14 +453,7 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("shape", FA_SHAPES + [(2, 32, 2, 129, 129, 128),
-                                               (1, 4, 4, 1, 1, 64),
-                                               (1, 4, 2, 255, 255, 128),
-                                               (1, 4, 2, 256, 256, 64),
-                                               (1, 4, 2, 257, 257, 128),
-                                               (1, 4, 2, 257, 257, 256),
-                                               (2, 8, 2, 129, 129, 80)],
-                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("shape", CARD_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_kernel_matches_plain_on_card(cuda_device, shape, dtype):
     tdt, tol = DTYPES[dtype]
     q, k, v = (torch.as_tensor(a).to(cuda_device, tdt)
