@@ -84,7 +84,20 @@ Phases (any failure raises and the exit code is not 0):
      step at B 4 after a 2048-token prefill; ``BatchedEngine`` (4 slots) on
      8 requests of 8 new tokens, staggered, timed, and a one-slot engine's
      streams against a greedy ``prefill`` / ``decode_step`` loop (f32);
- 12. the kernels line, the card, and the result line.
+ 12. main path, co-design on phase 3's suite (gen:64): ``grad_codesign``
+     from the three named variants and from every survivor of phase 3's
+     sweep (``seed_codesign()``), 100 steps; ``constrained_codesign`` from
+     the survivors: projected (shift) under an area budget, Lagrangian,
+     ``optimize_links``, an HBM ``area_envelope`` (100 steps each) and the
+     Euclidean projection under area and power budgets (5 steps);
+     ``joint_codesign`` (alternate, softmax) on 3 sharding variants of each
+     app; all float64 on the card, each timed, its trajectory, NumPy
+     re-score (1e-6), budgets and host twin (``device="cpu"``, 1e-6) held;
+     the optimized designs re-scored through K3 and K1, equal to plain
+     float32 and within 5e-4 of the descents' float64 fit; then
+     ``grad_codesign``'s launches a step and idle share, and one Euclidean
+     projection's time, launches and ATen operations;
+ 13. the kernels line, the card, and the result line.
 
 It needs one CUDA card, the CUDA toolkit's nvcc and the repository's
 ``src/`` tree; without them it exits with an error and prints no result.
@@ -1768,6 +1781,333 @@ def phase_ssm_serving(torch, RN, SS, T, E, model, cfg, dev):
 
 
 # --------------------------------------------------------------------------- #
+# Phase 12: gradient, budgeted and joint co-design on the card
+# --------------------------------------------------------------------------- #
+
+#: descent steps of every mode but the Euclidean one (the JAX package's
+#: default) and of the Euclidean one, whose retraction runs ~13 eager
+#: projections a step with both scalar budgets (six alternation cycles of
+#: two, then the shift fallback)
+CD_STEPS = 100
+CD_EUCLIDEAN_STEPS = 5
+#: phase 12's budgets: area and power (relative to the reference chip) and
+#: an HBM envelope
+CD_AREA, CD_POWER, CD_ENVELOPE = 1.0, 1.2, {"hbm_bw": 0.8}
+#: the final objective against the NumPy re-score, and the card's descent
+#: against the host's (tests/test_codesign.py's tolerance)
+CD_RTOL = 1e-6
+#: how many of an Euclidean projection's rounds phase 12 times and counts
+CD_PROJECTIONS = 3
+
+
+def sharding_groups(core, profiles, members=3):
+    """Sharding-variant groups over ``profiles``, by the rule of
+    ``tests/test_constrained.py``'s ``_sharding_groups``: member 0 is the
+    app, member k moves its collective traffic (halved k times) into memory
+    traffic (30 % more a step), as tp / zero1 / fsdp layouts trade them."""
+    groups = []
+    for p in profiles:
+        group = [p]
+        for k in range(1, members):
+            group.append(core.WorkloadProfile(
+                name=f"{p.name}/v{k}", flops=p.flops,
+                hbm_bytes=max(p.hbm_bytes, p.bytes_accessed) * (1 + 0.3 * k),
+                bytes_accessed=p.bytes_accessed * (1 + 0.3 * k),
+                collective_bytes={"all-reduce":
+                                  p.total_collective_bytes / (2.0 ** k)},
+                num_devices=p.num_devices, model_flops=p.model_flops))
+        groups.append(group)
+    return groups
+
+
+def aten_ops(torch, fn) -> int:
+    """The ATen operations one call of ``fn`` dispatches (each a launch
+    when its tensors lie on the card)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def _rescore(core, CD, profiles, res, beta, app_weights_of=None):
+    """The NumPy float64 objective of ``res``'s final designs under the
+    descent's frozen ``beta`` (for a joint result, with the hard selection
+    at those designs)."""
+    import numpy as np
+    from repro_torch.core import kernels_xp as KX
+
+    final = core.MachineBatch.from_models(res.models())
+    if app_weights_of is None:
+        return CD.scalarized_objective(profiles, final, beta=beta,
+                                       w_area=res.w_area, w_power=res.w_power)
+    pb = core.ProfileBatch.from_profiles(profiles)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        agg = KX.congruence_kernel(np, pb.arrays(), final.arrays(), beta,
+                                   "serial", core.IDEAL_EPS).aggregate
+        return CD._objective_terms(
+            np, pb.arrays(), final.arrays(), beta, "serial", core.IDEAL_EPS,
+            core.DEFAULT_COST_MODEL, res.w_area, res.w_power,
+            app_weights=app_weights_of(agg))
+
+
+def _check_codesign(core, CD, CN, label, res, seeds, kw, rescored):
+    """The holds every phase-12 result must meet."""
+    import numpy as np
+
+    check(res.names == list(seeds.names), f"{label}: names differ from the seeds")
+    traj = res.trajectory
+    check(bool(np.isfinite(traj).all()), f"{label}: non-finite objective")
+    if res.mode in ("unconstrained", "projected"):
+        # accepted steps never raise J; the links relaxation's rounding
+        # repair appends one step that may
+        rising = np.diff(traj[:-1] if kw.get("optimize_links") else traj, axis=0)
+        check(bool((rising <= 1e-12).all()),
+              f"{label}: the trajectory rises by {float(rising.max()):.3e}")
+    elif res.mode == "lagrangian":
+        damped = np.diff(res.violation_trace.max(axis=1))
+        check(bool((damped <= 1e-12).all()),
+              f"{label}: the violation trace rises by {float(damped.max()):.3e}")
+    check(bool((res.objective_final <= res.objective_seed + 1e-12).all()),
+          f"{label}: a design ends above its seed")
+    err = np.abs(rescored - res.objective_final) / np.abs(rescored)
+    check(bool((err <= CD_RTOL).all()),
+          f"{label}: the NumPy re-score is {float(err.max()):.3e} off")
+    cm = core.DEFAULT_COST_MODEL
+    tol = 1.0 + CN.FEASIBLE_RTOL
+    for m in res.models():
+        check(isinstance(m.ici_links, int) and m.ici_links >= 1,
+              f"{label}: ici_links {m.ici_links!r}")
+        if kw.get("area_budget") is not None:
+            check(cm.area(m) <= kw["area_budget"] * tol, f"{label}: area over budget")
+        if kw.get("power_budget") is not None:
+            check(cm.power(m) <= kw["power_budget"] * tol, f"{label}: power over budget")
+        for field, b in (kw.get("area_envelope") or {}).items():
+            check(cm.subsystem_area(m, field) <= b * tol,
+                  f"{label}: {field} over its envelope")
+    if kw.get("optimize_links"):
+        # exp(log(n)) of the rounded links column: n to an ulp or two
+        links = np.array([p["ici_links"] for p in res.final_params])
+        check(bool((np.abs(links - np.round(links)) <= 1e-9 * links).all()
+                   and (np.round(links) >= 1).all()),
+              f"{label}: ici_links not an integer >= 1: {links}")
+    if res.feasible is not None:
+        check(bool(res.feasible.all()), f"{label}: infeasible designs")
+    return float(err.max())
+
+
+def phase_codesign(torch, core, KC, dev, p3):
+    import numpy as np
+    from repro_torch.core import codesign as CD
+    from repro_torch.core import constrained as CN
+    from repro_torch.core import kernels_xp as KX
+
+    profiles, sweep = p3["profiles"], p3["result"]
+    pb = core.ProfileBatch.from_profiles(profiles)
+    named = core.MachineBatch.from_models(core.VARIANTS)
+    survivors = sweep.seed_codesign()
+    groups = sharding_groups(core, profiles)
+    flat, gids, _ = CN._flatten_groups(groups)
+    log(f"phase 12: seeds (a) the {len(named)} named variants, (b) "
+        f"{len(survivors)} survivors of the {len(sweep.machines)}-variant sweep "
+        f"(both Pareto fronts and every best fit); joint groups: "
+        f"{len(groups)} apps x 3 sharding variants")
+    # joint_codesign's target: each group's member 0's default beta
+    first = [int(np.nonzero(gids == g)[0][0]) for g in range(len(groups))]
+    flat_pb = core.ProfileBatch.from_profiles(flat)
+    runs = [  # (label, entry, inputs, seeds, keywords)
+        ("grad_codesign_named", core.grad_codesign, profiles, named,
+         dict(steps=CD_STEPS)),
+        ("grad_codesign_survivors", core.grad_codesign, profiles, survivors,
+         dict(steps=CD_STEPS)),
+        ("constrained_projected", core.constrained_codesign, profiles,
+         survivors, dict(area_budget=CD_AREA, steps=CD_STEPS)),
+        ("constrained_lagrangian", core.constrained_codesign, profiles,
+         survivors, dict(area_budget=CD_AREA, mode="lagrangian",
+                         steps=CD_STEPS)),
+        ("constrained_optimize_links", core.constrained_codesign, profiles,
+         survivors, dict(area_budget=CD_AREA, optimize_links=True,
+                         steps=CD_STEPS)),
+        ("constrained_area_envelope", core.constrained_codesign, profiles,
+         survivors, dict(area_envelope=CD_ENVELOPE, steps=CD_STEPS)),
+        ("constrained_euclidean", core.constrained_codesign, profiles,
+         survivors, dict(area_budget=CD_AREA, power_budget=CD_POWER,
+                         projection="euclidean", steps=CD_EUCLIDEAN_STEPS)),
+        ("joint_alternate", core.joint_codesign, groups, survivors,
+         dict(mode="alternate")),
+        ("joint_softmax", core.joint_codesign, groups, survivors,
+         dict(mode="softmax")),
+    ]
+
+    KC.reset_launch_counts()
+    t_phase = time.perf_counter()
+    results, rows = {}, {}
+    for label, entry, inputs, seeds, kw in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = entry(inputs, seeds, device=dev, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(peak > before, f"{label}: the card allocated nothing during the call")
+        joint = entry is core.joint_codesign
+        beta = (CD.resolve_beta(flat_pb, seeds, None, 0)[first][gids] if joint
+                else CD.resolve_beta(pb, seeds, None, 0))
+        rescored = _rescore(core, CD, flat if joint else profiles, res, beta,
+                            (lambda agg: CN._hard_weights(agg, gids))
+                            if joint else None)
+        rescore_err = _check_codesign(core, CD, CN, label, res, seeds, kw,
+                                      rescored)
+        results[label] = res
+        rows[label] = dict(seconds=seconds, rescore_err=rescore_err,
+                           peak_bytes=peak - before)
+        line = {"end_to_end": label, "A": len(groups) if joint else len(profiles),
+                "V": len(seeds), "steps": res.steps, "seconds": seconds}
+        if joint:
+            line["profiles"] = len(flat)
+        log(json.dumps(line))
+
+    # (a) re-scored the sweep's way: K3's beta against the seed baseline,
+    # then K1 on the optimized designs
+    ga = results["grad_codesign_named"]
+    final_a = core.MachineBatch.from_models(ga.models())
+    beta_a = CD.resolve_beta(pb, named, None, 0)
+    sw = core.run_sweep(profiles, population=final_a, beta_machine=core.VARIANTS[0],
+                        clamp=False, backend="cuda", device=dev)
+    plain32 = core.TorchBackend(dev, torch.float32)
+    beta_plain = plain32.default_beta(pb.arrays(), named.select(0).arrays())
+    _exact(torch, torch.as_tensor(sw.beta, dtype=torch.float32),
+           torch.as_tensor(beta_plain), "phase 12: K3's beta")
+    beta_err = float(np.max(np.abs(sw.beta - beta_a) / np.abs(beta_a)))
+    check(beta_err <= TOL, f"phase 12: K3's beta {beta_err:.3e} off the descent's")
+    # (b) re-scored through K1 with the descent's frozen beta
+    gs = results["grad_codesign_survivors"]
+    final_b = core.MachineBatch.from_models(gs.models())
+    beta_b = CD.resolve_beta(pb, survivors, None, 0)
+    k1 = core.get_backend("cuda", dev).congruence(
+        pb.arrays(), final_b.arrays(), beta_b, clamp=False)
+    counts = KC.launch_counts()
+    p32 = plain32.congruence(pb.arrays(), final_b.arrays(), beta_b, clamp=False)
+    for f in ("gamma", "alpha_compute", "alpha_memory", "alpha_interconnect",
+              "lbcs", "hrcs", "ics", "aggregate"):
+        _exact(torch, torch.as_tensor(getattr(k1, f)),
+               torch.as_tensor(getattr(p32, f)), f"phase 12: K1's {f}")
+    fit_errs = {}
+    for what, mb, beta, res, k_agg in (
+            ("a", final_a, beta_a, ga, sw.aggregate),
+            ("b", final_b, beta_b, gs, k1.aggregate)):
+        with np.errstate(divide="ignore", invalid="ignore"):
+            f64 = KX.congruence_kernel(np, pb.arrays(), mb.arrays(), beta,
+                                       "serial", core.IDEAL_EPS)
+        fit = (res.objective_final - res.w_area * res.area_final
+               - res.w_power * res.power_final)
+        err = np.abs(f64.aggregate.mean(axis=0) - fit) / np.abs(fit)
+        check(bool((err <= CD_RTOL).all()),
+              f"phase 12 ({what}): the descent's fit term is {float(err.max()):.3e} "
+              "off its NumPy mean aggregate")
+        ok = conditioned(np, f64.gamma, beta, [f64.alpha_compute, f64.alpha_memory,
+                                                f64.alpha_interconnect])
+        diff = np.abs(k_agg - f64.aggregate)
+        check(bool((diff[ok] <= TOL + TOL * np.abs(f64.aggregate[ok])).all()),
+              f"phase 12 ({what}): the kernels' aggregate is "
+              f"{float(diff[ok].max()):.3e} off the descent's float64 one")
+        cols = ok.all(axis=0)
+        mean_err = np.abs(k_agg.mean(axis=0) - fit)[cols]
+        check(bool((mean_err <= TOL + TOL * np.abs(fit[cols])).all()),
+              f"phase 12 ({what}): the kernels' suite mean is "
+              f"{float(mean_err.max()):.3e} off the descent's fit term")
+        fit_errs[what] = dict(cells=float(diff[ok].max()),
+                              ill_conditioned=int((~ok).sum()),
+                              mean=float(mean_err.max()) if cols.any() else None,
+                              variants=int(cols.sum()))
+    check(counts["congruence"] >= 2 and counts["default_beta"] >= 1,
+          f"phase 12 missed a kernel: {counts}")
+    drive_s = time.perf_counter() - t_phase
+    log(f"phase 12: every mode held (trajectories, NumPy re-score within "
+        f"{max(r['rescore_err'] for r in rows.values()):.3e}, budgets); the "
+        f"optimized designs re-scored through K3 + K1 equal plain float32 and "
+        f"lie within {fit_errs} of the descents' float64 fit; launches {counts}; "
+        f"{drive_s:.1f} s")
+
+    # the same calls on the host: the same names, final objectives at 1e-6
+    for label, entry, inputs, seeds, kw in runs:
+        t0 = time.perf_counter()
+        host = entry(inputs, seeds, device="cpu", **kw)
+        rows[label]["host_seconds"] = time.perf_counter() - t0
+        res = results[label]
+        check(host.names == res.names and host.selection_names == res.selection_names,
+              f"{label}: the host's names or picks differ from the card's")
+        err = np.abs(host.objective_final - res.objective_final) / np.abs(
+            host.objective_final)
+        check(bool((err <= CD_RTOL).all()),
+              f"{label}: the card's final objective is {float(err.max()):.3e} "
+              "off the host's")
+        rows[label]["host_err"] = float(err.max())
+    log("phase 12: the host (device='cpu') gives the same names and picks, final "
+        "objectives within " + ", ".join(
+            f"{k} {r['host_err']:.2e}" for k, r in rows.items()))
+    log(json.dumps({"codesign_host_seconds": {
+        k: r["host_seconds"] for k, r in rows.items()}}))
+
+    # grad_codesign on (b): launches a step and the device's idle share
+    few = 10
+    split0 = device_split(torch, lambda: core.grad_codesign(
+        profiles, survivors, steps=0, device=dev))
+    split = device_split(torch, lambda: core.grad_codesign(
+        profiles, survivors, steps=few, device=dev))
+    per_step = (split["device_events"] - split0["device_events"]) / few
+    steps_per_s = CD_STEPS / rows["grad_codesign_survivors"]["seconds"]
+    log(json.dumps({"codesign_profile": "grad_codesign_survivors", "V": len(survivors),
+                    "steps_per_s": steps_per_s, "launches_a_step": per_step,
+                    "steps_profiled": few, "wall_ms": split["wall_ms"],
+                    "device_busy_ms": split["device_busy_ms"],
+                    "idle_share": split["idle_share"]}))
+
+    # one Euclidean projection (every survivor's rates doubled, so the
+    # budgets bind): time, launches and ATen operations
+    theta0, lo, hi = CD.theta_box(survivors, 16.0)
+    be = core.get_backend("torch", dev)
+    fixed = be.machine_arrays(survivors.arrays())
+    th, lo_t, hi_t = (be.asarray(theta0 + np.log(2.0)), be.asarray(lo),
+                      be.asarray(hi))
+    # (the profiler's launch count only for the area budget alone: with both
+    # budgets a projection makes ~12 times as many)
+    for budgets, rounds in ((dict(area_budget=CD_AREA), CD_PROJECTIONS),
+                            (dict(area_budget=CD_AREA, power_budget=CD_POWER), 1)):
+        project = lambda: CN.project_to_budgets(
+            torch, th, lo_t, hi_t, fixed, core.DEFAULT_COST_MODEL,
+            method="euclidean", **budgets)
+        ops = aten_ops(torch, project)
+        times = []
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, ok = project()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        check(bool(ok.all()), "phase 12: an Euclidean projection left a design "
+              "infeasible")
+        line = {"euclidean_projection": sorted(budgets), "V": len(survivors),
+                "seconds": statistics.median(times), "aten_ops": ops}
+        if "power_budget" not in budgets:
+            proj = device_split(torch, project)
+            line.update(launches=proj["device_events"],
+                        idle_share=proj["idle_share"])
+        log(json.dumps(line))
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s in all")
+    return dict(counts=counts, rows=rows)
+
+
+# --------------------------------------------------------------------------- #
 
 
 def main() -> int:
@@ -1875,11 +2215,14 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    p12 = phase_codesign(torch, core, KC, dev, p3)
+
     kernels = []
     for name in REPLACES:
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=p3["counts"][name] + p4["counts"][name],
+            launches=(p3["counts"][name] + p4["counts"][name]
+                      + p12["counts"][name]),
             max_abs_err=errs[name], ms=rows[name]["ms"],
             plain_ms=rows[name]["plain_ms"], bound_ms=rows[name]["bound_ms"],
             bound_by=rows[name]["bound_by"], library_ms=None))

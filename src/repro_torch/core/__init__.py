@@ -11,11 +11,29 @@ Public API of this slice (the sweep path):
   kernels_xp.get_backend                   -- "cuda" kernels / "torch" plain
   costmodel.CostModel                      -- area + power silicon proxies
   genload.AppSpace, suites.resolve_suite   -- "gen:<n>" / "zoo-smoke" suites
+  codesign.grad_codesign                   -- autograd machine co-design
+  constrained.constrained_codesign         -- budgeted descent (area/power
+                                              budgets + per-subsystem
+                                              area envelopes)
+  constrained.joint_codesign               -- joint machine+sharding descent
+  spec.CodesignSpec                        -- one validated request object
+                                              for the co-design entry points
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; without a CUDA device they raise.
 """
 
+from repro_torch.core.codesign import (
+    CodesignResult,
+    grad_codesign,
+    scalarized_objective,
+)
+from repro_torch.core.constrained import (
+    constrained_codesign,
+    joint_codesign,
+    project_to_budgets,
+    validate_area_envelope,
+)
 from repro_torch.core.congruence import (
     CongruenceReport,
     SCORE_NAMES,
@@ -71,4 +89,5 @@ from repro_torch.core.sweep import (
     save_population,
     shard_sweep,
 )
+from repro_torch.core.spec import CodesignSpec, resolve_spec
 from repro_torch.core.timing import TimingBreakdown, step_time, subsystem_times
