@@ -48,8 +48,12 @@ Phases (any failure raises and the exit code is not 0):
      take the tensor-core kernel (wgmma + TMA), the rest the FMA kernel;
      then time at the model's shape the tensor-core kernel, the FMA kernel
      on the same bf16 tensors (for the record), the plain version, SDPA
-     and the bound, and the FMA kernel in f32 beside its own; and the FMA
-     kernel at paligemma-3b's attention shape (D 256) in f32 and bf16;
+     and the bound, and the FMA kernel in f32 beside its own; the FMA
+     kernel at paligemma-3b's attention shape (D 256) in f32 and bf16; and,
+     held then timed in bf16, phases 13-15's shapes (``FAMILY_FA``):
+     qwen2-moe-a2.7b's (H 16, K 16, S 2048, D 128), recurrentgemma-9b's
+     (H 16, K 1, S 2048, D 256, window 2048) and whisper-medium's decoder
+     (H 16, K 16, S 448, D 64), B 4;
   7. main path, the model stack: chatglm3-6b at full width and depth
      (28 layers, weights drawn on the card, bf16 compute), ``forward`` and
      ``loss_fn`` on 4 x 2048 seeded tokens with ``attn_impl="pallas"`` (28
@@ -97,7 +101,29 @@ Phases (any failure raises and the exit code is not 0):
      float32 and within 5e-4 of the descents' float64 fit; then
      ``grad_codesign``'s launches a step and idle share, and one Euclidean
      projection's time, launches and ATen operations;
- 13. the kernels line, the card, and the result line.
+ 13-16. main path, the MoE, hybrid, audio and VLM families at full width
+     and depth, one at a time (the previous model freed), weights drawn on
+     the card from seed 0, bf16 compute, NumPy-seeded tokens (next tokens
+     as labels), frames and patches: qwen2-moe-a2.7b (24 layers, 60
+     experts top-4 + 4 shared; 4 x 2048 tokens), recurrentgemma-9b (12
+     groups of two RG-LRU blocks and a local-attention block + 2 RG-LRU
+     blocks; 4 x 2048), whisper-medium (24 encoder layers over 1500
+     frames, 24 decoder layers; 4 x 448 tokens) and paligemma-3b (18
+     layers, 256 patches + 4 x 2048 tokens).  ``forward`` and ``loss_fn``
+     with ``attn_impl="pallas"`` launch K5 24 (tensor cores), 12 (FMA, D
+     256), 24 (tensor cores, D 64) and 0 (the VLM prefix) times a forward,
+     held against the plain attention on the same weights (the MoE's
+     tokens whose top-k experts differ between the runs counted and left
+     out of the hidden-state holds); the f32 forward through the FMA
+     kernel against the plain f32 one (1e-4 of max); ``prefill`` +
+     ``decode_step`` against the forward in f32 (the hybrid: a 2048-token
+     prefill and 8 decode steps past the window, so the ring wraps);
+     ``BatchedEngine`` (4 slots, 8 requests x 8 new tokens, staggered),
+     its streams each equal to the request served alone (the MoE's in
+     f32), or for the hybrid a one-slot engine equal to greedy decode;
+     timings of the forward (with a ``torch.profiler`` split), the decode
+     step and the engine, and the RG-LRU step loop alone;
+ 17. the kernels line, the card, and the result line.
 
 It needs one CUDA card, the CUDA toolkit's nvcc and the repository's
 ``src/`` tree; without them it exits with an error and prints no result.
@@ -176,6 +202,11 @@ FA_SEQ = (1, 63, 64, 65, 127, 128, 129, 255, 256, 257, 2048)
 #: paligemma-3b's attention (B 4, H 8, K 1, S = T 2048, D 256, causal): the
 #: FMA kernel's head dim 256, timed in f32 and bf16
 PALIGEMMA_FA = (4, 8, 1, 2048, 256)
+#: the K5 shapes of phases 13-15's forwards, held and timed in phase 6:
+#: (arch, B, H, K, S, D, window), bf16, causal
+FAMILY_FA = (("qwen2-moe-a2.7b", 4, 16, 16, 2048, 128, None),
+             ("recurrentgemma-9b", 4, 16, 1, 2048, 256, 2048),
+             ("whisper-medium", 4, 16, 16, 448, 64, None))
 #: The model path: chatglm3-6b, B x S tokens in bf16 compute; the decode
 #: step is timed over a cache of DECODE_CACHE positions.
 MODEL_ARCH, MODEL_B, MODEL_S, DECODE_CACHE = "chatglm3-6b", 4, 2048, 2048
@@ -1138,6 +1169,37 @@ def phase_flash_attention(torch, FA, dev):
                         "library_ms": library_ms,
                         "library": "torch.nn.functional.scaled_dot_product_attention"
                                    "(is_causal=True, enable_gqa=True)"}))
+
+    # the MoE, hybrid and audio families' attention shapes, in bf16 as their
+    # forwards call K5 (phases 13-15): each held, then timed
+    for arch, B, H, K, S, D, window in FAMILY_FA:
+        q, k, v = (rand(B, S, n, D, dtype=torch.bfloat16).transpose(1, 2) for n in (H, K, K))
+        held(q, k, v, True, window, f"{arch} shape, bf16, strided views")
+        route = "wgmma" if _wants_wgmma(q, k, v) else "fma"
+        call = lambda: FA.flash_attention(q, k, v, causal=True, window=window)
+        ms = cuda_ms(torch, call)
+        # whisper's launch is short enough for the wrapper's host path to
+        # set the events' pace: the kernel's own time beside it
+        device_ms = device_us(torch, call, "flash_attention") / 1e3
+        plain_ms = cuda_ms(torch, lambda: FA.plain_flash_attention(
+            q, k, v, causal=True, window=window), reps=3, rounds=3)
+        # SDPA takes no window; these windows reach past S, so the mask is causal
+        check(window is None or window >= S, f"{arch}: a window SDPA cannot take")
+        library_ms = cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+        bound_ms, bound_by = attention_bound(B, H, K, S, S, D, True, window, "bfloat16")
+        nbytes, ops = attention_work(B, H, K, S, S, D, True, window, q.element_size())
+        rows[arch] = dict(route=route, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        log(json.dumps({"timing": f"flash_attention_{route}", "shape": arch,
+                        "B": B, "H": H, "K": K, "S": S, "T": S, "D": D,
+                        "window": window, "dtype": "bfloat16", "causal": True,
+                        "layout": "(B,S,H,D) strided views", "ms": ms,
+                        "kernel_device_ms": device_ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "bytes": nbytes, "operations": ops,
+                        "tflops": ops / ms / 1e9, "library_ms": library_ms,
+                        "library": "torch.nn.functional.scaled_dot_product_attention"
+                                   "(is_causal=True, enable_gqa=True)"}))
     return rows
 
 
@@ -1146,10 +1208,12 @@ def phase_flash_attention(torch, FA, dev):
 # --------------------------------------------------------------------------- #
 
 
-def device_split(torch, fn):
+def device_split(torch, fn, extra_groups=None):
     """One call of ``fn`` under ``torch.profiler``: the window's wall ms
     (profiler overhead included), the device-busy ms summed over its CUDA
-    kernels (one stream, so they do not overlap) and that time by group."""
+    kernels (one stream, so they do not overlap) and that time by group.
+    ``extra_groups`` maps a group's name to parts of kernel names it takes,
+    tried after the port's own kernels and before the matmuls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1171,6 +1235,9 @@ def device_split(torch, fn):
             group = "K6/K7"
         elif "selective_scan_k" in name:
             group = "K8"
+        elif any(k in name for keys in (extra_groups or {}).values() for k in keys):
+            group = next(g for g, keys in extra_groups.items()
+                         if any(k in name for k in keys))
         elif any(k in name for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
             group = "matmul"
         elif "memcpy" in name or "memset" in name:
@@ -1213,6 +1280,11 @@ def _tokens(torch, dev, B, S, vocab, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     toks = torch.randint(0, vocab, (B, S), generator=gen, device=dev)
     return {"tokens": toks, "labels": toks}
+
+
+def rel(a, b):
+    """max |a - b| over max |b|."""
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
 
 
 def phase_model(torch, FA, T, C, dev):
@@ -1271,9 +1343,6 @@ def phase_model(torch, FA, T, C, dev):
     check(f32_launches == cfg.n_layers and FA.flash_attention.launches_wgmma == 0,
           "the f32 forward did not run all its K5 launches on the FMA kernel")
 
-    def rel(a, b):
-        return float((a.float() - b.float()).abs().max() / b.float().abs().max())
-
     # the loss over the first logits chunk alone, on each path
     lc = cfg.logits_chunk
     chunk = [float(T._xent(model, cfg, h[:, :lc], batch["labels"][:, :lc])[0])
@@ -1312,6 +1381,15 @@ def phase_model(torch, FA, T, C, dev):
     return model, cfg, {"wgmma": fwd_launches + loss_launches, "fma": f32_launches}
 
 
+def _staggered(eng, reqs):
+    """Serve ``reqs`` on ``eng``: the first alone for a step, then the rest."""
+    eng.submit(reqs[0])
+    eng.step()
+    for r in reqs[1:]:
+        eng.submit(r)
+    eng.run_to_completion()
+
+
 def phase_serving(torch, FA, T, E, model, cfg, dev):
     from repro_torch.models import layers as L
 
@@ -1341,11 +1419,7 @@ def phase_serving(torch, FA, T, E, model, cfg, dev):
     reqs = requests()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.submit(reqs[0])
-    eng.step()
-    for r in reqs[1:]:
-        eng.submit(r)
-    eng.run_to_completion()
+    _staggered(eng, reqs)
     torch.cuda.synchronize()
     engine_s = time.perf_counter() - t0
     engine_launches = FA.flash_attention.launches
@@ -1653,9 +1727,6 @@ def phase_ssm_model(torch, RN, SS, T, C, dev):
     check(ssm_counts(RN, SS) == per_forward, "the f32 forward missed K6-K8")
     l_err = abs(float(loss) - float(loss_plain))
 
-    def rel(a, b):
-        return float((a.float() - b.float()).abs().max() / b.float().abs().max())
-
     h_err, k_f32_err, noise = rel(hidden, h_plain), rel(k32, ref32), rel(h_plain, ref32)
     h_limit = max(HIDDEN_RTOL, BF16_NOISE_FACTOR * noise)
     log(f"phase 10: against the plain blocks on the same weights: loss "
@@ -1748,11 +1819,7 @@ def phase_ssm_serving(torch, RN, SS, T, E, model, cfg, dev):
     reqs = requests()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.submit(reqs[0])
-    eng.step()
-    for r in reqs[1:]:
-        eng.submit(r)
-    eng.run_to_completion()
+    _staggered(eng, reqs)
     torch.cuda.synchronize()
     engine_s = time.perf_counter() - t0
     engine_counts = ssm_counts(RN, SS)
@@ -2108,6 +2175,357 @@ def phase_codesign(torch, core, KC, dev, p3):
 
 
 # --------------------------------------------------------------------------- #
+# Phases 13-16: the MoE, hybrid, audio and VLM families at full width
+# --------------------------------------------------------------------------- #
+
+#: Each family's phase: its config at full published width and depth
+#: (``widths`` checks it), B x S tokens in bf16 compute (whisper's S is its
+#: published decoder context, 448), the K5 kernel its forward takes and
+#: its launches a forward, the cache of the timed decode step, and how
+#: the engine's streams are held: against each request served alone
+#: ("solo"), or a one-slot engine against greedy decode ("greedy", the
+#: hybrid: idle slots advance recurrent state, ROADMAP.md R7).
+FAMILY_PHASES = (
+    dict(phase=13, arch="qwen2-moe-a2.7b", S=2048, k5=("wgmma", 24), decode_cache=2048,
+         engine="solo", widths=lambda c: (c.n_layers, c.d_model, c.moe.n_experts,
+                                          c.moe.top_k, c.moe.n_shared_experts)
+         == (24, 2048, 60, 4, 4)),
+    dict(phase=14, arch="recurrentgemma-9b", S=2048, k5=("fma", 12), decode_cache=2048,
+         engine="greedy", widths=lambda c: (c.n_layers, c.d_model, c.hybrid.lru_width,
+                                            c.attn_window, c.head_dim_)
+         == (38, 4096, 4096, 2048, 256)),
+    dict(phase=15, arch="whisper-medium", S=448, k5=("wgmma", 24), decode_cache=448,
+         engine="solo", widths=lambda c: (c.n_encoder_layers, c.n_layers, c.d_model,
+                                          c.encoder_seq_len, c.head_dim_)
+         == (24, 24, 1024, 1500, 64)),
+    dict(phase=16, arch="paligemma-3b", S=2048, k5=(None, 0), decode_cache=2048,
+         engine="solo", widths=lambda c: (c.n_layers, c.d_model, c.n_vision_tokens,
+                                          c.head_dim_) == (18, 2048, 256, 256)),
+)
+FAMILY_B = 4
+#: phase 14's ring check: a prefill of the window's 2048 tokens, then this
+#: many decode steps past it
+HYBRID_PAST = 8
+#: kernel-name parts of the MoE forward's expert dispatch (the sort, the
+#: gathers and the indexed writes) and of the RG-LRU's step loop (one
+#: addcmul a step), for the device split
+DISPATCH_KERNELS = ("sort", "index", "scatter", "gather", "bincount", "topk", "cub",
+                    "radix")
+LRU_KERNELS = ("addcmul",)
+
+
+def family_batch(torch, cfg, dev, B, S, seed):
+    """NumPy-seeded tokens, their next tokens as labels and, for the stub
+    frontends, frame or patch embeddings: on the card."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, S))
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal((B, cfg.encoder_seq_len, cfg.d_model),
+                                              dtype=np.float32)
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal((B, cfg.n_vision_tokens, cfg.d_model),
+                                               dtype=np.float32)
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def prompt_of(batch, S):
+    """The batch's first S tokens, with its frames or patches."""
+    out = {k: v for k, v in batch.items() if k not in ("tokens", "labels")}
+    out["tokens"] = batch["tokens"][:, :S]
+    return out
+
+
+def record_routes(torch, L, fn, replay=None):
+    """``fn()`` and, for each MoE layer it ran, each token's top-k experts
+    (T, k), recomputed from the layer's input as ``moe_apply`` picks them.
+    With ``replay`` (an earlier run's record) every layer takes the recorded
+    experts instead, gated by its own router probabilities: the earlier
+    run's routing on another path, so that the two differ by rounding
+    alone."""
+    routes, real = [], L.moe_apply
+
+    def traced(p, cfg, x):
+        if replay is not None:
+            forced = replay[len(routes)]
+            routes.append(forced)
+            topk = torch.topk
+            torch.topk = lambda probs, k, dim=-1: (probs.gather(-1, forced), forced)
+            try:
+                return real(p, cfg, x)
+            finally:
+                torch.topk = topk
+        cd = L.dtype_of(cfg.compute_dtype)
+        xt = x.reshape(-1, x.shape[-1]).to(cd)
+        probs = torch.softmax(torch.matmul(xt, p["router"].to(cd)).float(), dim=-1)
+        routes.append(torch.topk(probs, cfg.moe.top_k, dim=-1).indices)
+        return real(p, cfg, x)
+
+    L.moe_apply = traced
+    try:
+        return fn(), routes
+    finally:
+        L.moe_apply = real
+
+
+def flipped_rows(torch, shape, dev, ra, rb):
+    """(B, S) bool: the tokens whose top-k expert set differs, in some MoE
+    layer, between two runs' route records."""
+    out = torch.zeros(shape, dtype=torch.bool, device=dev)
+    for a, b in zip(ra, rb):
+        out |= (a.sort(-1).values != b.sort(-1).values).any(-1).reshape(shape)
+    return out
+
+
+def phase_family(torch, FA, T, E, C, dev, spec):
+    from repro_torch.models import layers as L
+
+    n, arch, S, B = spec["phase"], spec["arch"], spec["S"], FAMILY_B
+    cfg = C.get_config(arch)
+    check(cfg.compute_dtype == "bfloat16" and spec["widths"](cfg), f"config {cfg}")
+    t0 = time.perf_counter()
+    model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase {n}: {arch} ({n_params:.4g} parameters, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB) drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    batch = family_batch(torch, cfg, dev, B, S, seed=1)
+    kc = cfg.replace(attn_impl="pallas")
+    route, per_forward = spec["k5"]
+    want = {"wgmma": 0, "fma": 0}
+    if route:
+        want[route] = per_forward
+
+    def launches():
+        return {"wgmma": FA.flash_attention.launches_wgmma,
+                "fma": FA.flash_attention.launches_fma}
+
+    FA.reset_launch_counts()
+    t0 = time.perf_counter()
+    (hidden, aux), routes_k = record_routes(torch, L, lambda: T.forward(model, kc, batch))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    fwd = launches()
+    (loss, metrics), routes_kl = record_routes(torch, L, lambda: T.loss_fn(model, kc, batch))
+    torch.cuda.synchronize()
+    loss_l = {k: v - fwd[k] for k, v in launches().items()}
+    log(f"phase {n}: forward {tuple(hidden.shape)} {hidden.dtype} in {first_s:.3f} s "
+        f"(first call), loss {float(loss):.5f} (aux {float(metrics['aux_loss']):.5f}), "
+        f"accuracy {float(metrics['accuracy']):.5f}; K5 launches {fwd} (forward), "
+        f"{loss_l} (loss_fn)")
+    check(fwd == want and loss_l == want,
+          f"K5 launched {fwd} / {loss_l} times, not {want} per forward")
+    check(hidden.shape == (B, S, cfg.d_model) and hidden.dtype == torch.bfloat16,
+          f"hidden {hidden.shape} {hidden.dtype}")
+    check(bool(torch.isfinite(hidden).all()) and math.isfinite(float(loss))
+          and math.isfinite(float(aux)), "non-finite forward")
+    check((float(aux) > 0) == (cfg.family == "moe"), f"aux loss {float(aux)}")
+
+    # The plain attention on the same weights.  A token whose router
+    # probabilities nearly tie picks other experts when the two paths round
+    # differently, after which its row -- and, through attention, the later
+    # rows of its sequence -- differ by more than rounding.  So the free
+    # runs' flips and loss are reported, and the holds are made on runs
+    # that replay the K5 run's routing.
+    cfg32, kc32 = cfg.replace(compute_dtype="float32"), kc.replace(compute_dtype="float32")
+    FA.reset_launch_counts()
+    (loss_plain, _), _ = record_routes(torch, L, lambda: T.loss_fn(model, cfg, batch),
+                                       routes_kl)
+    (h_plain, _), _ = record_routes(torch, L, lambda: T.forward(model, cfg, batch), routes_k)
+    (ref32, _), _ = record_routes(torch, L, lambda: T.forward(model, cfg32, batch), routes_k)
+    torch.cuda.synchronize()
+    check(FA.flash_attention.launches == 0, "the plain attention launched K5")
+    FA.reset_launch_counts()
+    (k32, _), routes_k32 = record_routes(torch, L, lambda: T.forward(model, kc32, batch))
+    torch.cuda.synchronize()
+    f32_launches = launches()
+    want32 = {"wgmma": 0, "fma": per_forward}
+    check(f32_launches == want32, f"the f32 forward launched K5 {f32_launches}, not {want32}")
+    (p32, _), _ = record_routes(torch, L, lambda: T.forward(model, cfg32, batch), routes_k32)
+    if cfg.moe:   # the free plain runs' routing and loss
+        _, routes_p = record_routes(torch, L, lambda: T.forward(model, cfg, batch))
+        _, routes_p32 = record_routes(torch, L, lambda: T.forward(model, cfg32, batch))
+        flips = {"bf16": int(flipped_rows(torch, (B, S), dev, routes_k, routes_p).sum()),
+                 "f32": int(flipped_rows(torch, (B, S), dev, routes_k32, routes_p32).sum()),
+                 "rerun": int(flipped_rows(torch, (B, S), dev, routes_k, routes_kl).sum())}
+        free_loss = float(T.loss_fn(model, cfg, batch)[0])
+        del routes_p, routes_p32
+    h_err, noise, f32_err = rel(hidden, h_plain), rel(h_plain, ref32), rel(k32, p32)
+    h_limit = max(HIDDEN_RTOL, BF16_NOISE_FACTOR * noise)
+    l_err = abs(float(loss) - float(loss_plain))
+    log(f"phase {n}: against the plain attention on the same weights: loss "
+        f"{float(loss_plain)!r} vs {float(loss)!r} (diff {l_err:.3e}, limit {LOSS_ATOL}); "
+        f"bf16 hidden max err {h_err:.3e} of max |hidden| (limit {h_limit:.3e}: "
+        f"{HIDDEN_RTOL}, or {BF16_NOISE_FACTOR} x the plain bf16 path's own distance "
+        f"{noise:.3e} from the f32 forward); f32 compute, K5 vs plain: {f32_err:.3e} "
+        f"(limit {DECODE_RTOL})" + (
+            f"; the plain runs replay the K5 runs' routing; between free runs "
+            f"{flips['bf16']} of {B * S} tokens pick other top-{cfg.moe.top_k} experts "
+            f"in some layer in bf16, {flips['f32']} in f32, and the plain bf16 loss is "
+            f"{free_loss!r} (diff {abs(free_loss - float(loss)):.3e}); the K5 forward "
+            f"and loss_fn's K5 forward route {flips['rerun']} tokens apart" if cfg.moe else ""))
+    check(l_err <= LOSS_ATOL, f"loss differs from the plain attention by {l_err:.3e}")
+    check(f32_err <= DECODE_RTOL, f"f32 hidden differs from the plain attention by {f32_err:.3e}")
+    check(h_err <= h_limit, f"bf16 hidden differs from the plain attention by {h_err:.3e}")
+    del hidden, h_plain, ref32, k32, p32, routes_k, routes_kl, routes_k32
+
+    fwd_ms = cuda_ms(torch, lambda: T.forward(model, kc, batch), reps=2, rounds=3)
+    fwd_plain_ms = cuda_ms(torch, lambda: T.forward(model, cfg, batch), reps=1, rounds=2)
+    log(json.dumps({"end_to_end": "forward", "arch": arch, "B": B, "S": S,
+                    "compute_dtype": cfg.compute_dtype, "attn_impl": "pallas",
+                    "ms": fwd_ms, "tokens_per_s": B * S / fwd_ms * 1e3,
+                    "plain_attention_ms": fwd_plain_ms,
+                    "plain_attention_tokens_per_s": B * S / fwd_plain_ms * 1e3}))
+    extra = ({"expert dispatch": DISPATCH_KERNELS} if cfg.family == "moe" else
+             {"lru": LRU_KERNELS} if cfg.family == "hybrid" else None)
+    log(json.dumps({"profile": "forward", "arch": arch, "attn_impl": "pallas",
+                    **device_split(torch, lambda: T.forward(model, kc, batch), extra)}))
+    if cfg.family == "hybrid":   # the RG-LRU's step loop alone, at the forward's shape
+        w = cfg.hybrid.lru_width
+        gen = torch.Generator(device=dev).manual_seed(3)
+        a = torch.rand((B, S, w), generator=gen, device=dev)
+        bx = torch.randn((B, S, w), generator=gen, device=dev)
+        h0 = torch.zeros((B, w), device=dev)
+        lru_ms = cuda_ms(torch, lambda: L._lru_scan(a, bx, h0), reps=1, rounds=3)
+        n_rec = cfg.n_layers - T.hybrid_layout(cfg)[0]
+        log(json.dumps({"timing": "lru_scan", "B": B, "S": S, "W": w, "ms": lru_ms,
+                        "recurrent_layers": n_rec, "ms_a_forward": lru_ms * n_rec,
+                        "share_of_forward": lru_ms * n_rec / fwd_ms}))
+        del a, bx
+
+    phase_family_serving(torch, FA, T, E, L, model, cfg, dev, spec)
+    del model
+    return {"wgmma": fwd["wgmma"] + loss_l["wgmma"],
+            "fma": fwd["fma"] + loss_l["fma"] + f32_launches["fma"]}
+
+
+def _greedy_decode(torch, T, model, cfg, prompt, n, max_len, dev):
+    """Greedy tokens through ``decode_step`` alone, the prompt token by token
+    from an empty cache of ``max_len``: what a one-slot engine computes."""
+    cache = T.init_cache(cfg, 1, max_len, device=dev)
+    toks = list(prompt) or [0]
+    for i, t in enumerate(toks):
+        cache, logits = T.decode_step(model, cfg, cache,
+                                      torch.tensor([[t]], device=dev), i)
+    out = [int(logits[0, -1].argmax())]
+    for i in range(n - 1):
+        cache, logits = T.decode_step(model, cfg, cache,
+                                      torch.tensor([[out[-1]]], device=dev), len(toks) + i)
+        out.append(int(logits[0, -1].argmax()))
+    return out
+
+
+def phase_family_serving(torch, FA, T, E, L, model, cfg, dev, spec):
+    n, arch = spec["phase"], spec["arch"]
+    kc = cfg.replace(attn_impl="pallas")
+    cfg32 = kc.replace(compute_dtype="float32")
+
+    def rel(got, want):
+        return float((got - want).abs().max() / (want.abs().max() + 1e-6))
+
+    if cfg.family == "hybrid":
+        # a prefill of the window's tokens, then decode steps past it: the
+        # ring wraps; against one forward over all of them, f32
+        W, B = cfg.attn_window, 2
+        batch = family_batch(torch, cfg, dev, B, W + HYBRID_PAST, seed=2)
+        hidden, _ = T.forward(model, cfg32, batch)
+        full = L.unembed_apply(model.embed, cfg32, hidden[:, W - 1:])
+        del hidden
+        cache = T.init_cache(cfg32, B, W + HYBRID_PAST, device=dev)
+        check(cache["groups"]["att"]["k"].shape[2] == W, "the ring is not the window")
+        cache, logits = T.prefill(model, cfg32, prompt_of(batch, W), cache)
+        errs = [rel(logits[:, 0], full[:, 0])]
+        for i in range(HYBRID_PAST):
+            cache, logits = T.decode_step(model, cfg32, cache,
+                                          batch["tokens"][:, W + i:W + i + 1], W + i)
+            errs.append(rel(logits[:, 0], full[:, 1 + i]))
+        log(f"phase {n}: prefill({W}) + {HYBRID_PAST} decode steps past the window "
+            f"(the ring wraps) == one forward of {W + HYBRID_PAST} tokens in f32: max "
+            f"{max(errs):.3e} of max |logit| (limit {DECODE_RTOL}; by step "
+            f"{[f'{e:.2e}' for e in errs]})")
+        check(max(errs) <= DECODE_RTOL, f"decode differs from the forward by {max(errs):.3e}")
+    else:
+        B, S = 2, 64
+        batch = family_batch(torch, cfg, dev, B, S, seed=2)
+        hidden, _ = T.forward(model, cfg32, batch)
+        full = L.unembed_apply(model.embed, cfg32, hidden[:, -2:])
+        cache = T.init_cache(cfg32, B, S, device=dev)
+        cache, last = T.prefill(model, cfg32, prompt_of(batch, S - 1), cache)
+        cache, logits = T.decode_step(model, cfg32, cache, batch["tokens"][:, S - 1:], S - 1)
+        err = max(rel(logits[:, 0], full[:, 1]), rel(last[:, 0], full[:, 0]))
+        log(f"phase {n}: prefill({S - 1}) + decode_step == forward's last logits in "
+            f"f32: {err:.3e} of max |logit| (limit {DECODE_RTOL})")
+        check(logits.shape == (B, 1, cfg.vocab_size) and err <= DECODE_RTOL,
+              f"decode differs from the forward by {err:.3e}")
+    del batch, full, cache, logits
+
+    # the decode step at B 4 over a cache of spec["decode_cache"] positions
+    D = spec["decode_cache"]
+    cache = T.init_cache(kc, 4, D, device=dev)
+    tok = torch.zeros((4, 1), dtype=torch.long, device=dev)
+    step = lambda: T.decode_step(model, kc, cache, tok, D - 1)
+    decode_ms = cuda_ms(torch, step, reps=5, rounds=3)
+    log(json.dumps({"end_to_end": "decode_step", "arch": arch, "B": 4, "cache_len": D,
+                    "compute_dtype": cfg.compute_dtype, "ms": decode_ms}))
+    log(json.dumps({"profile": "decode_step", "arch": arch, **device_split(torch, step)}))
+    del cache
+
+    # the engine: 8 requests x 8 new tokens on 4 slots, staggered, timed
+    def requests():
+        return [E.Request(rid=i, prompt=[(13 * i + j) % cfg.vocab_size for j in range(4)],
+                          max_new_tokens=8) for i in range(8)]
+
+    FA.reset_launch_counts()
+    eng = E.BatchedEngine(model, kc, slots=4, max_len=64, device=dev)
+    reqs = requests()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _staggered(eng, reqs)
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    new_tokens = sum(len(r.generated) for r in reqs)
+    check(all(len(r.generated) == 8 and all(0 <= t < cfg.vocab_size for t in r.generated)
+              for r in reqs), "engine streams")
+    check(FA.flash_attention.launches == 0,
+          f"the engine launched K5 {FA.flash_attention.launches} times")
+    if spec["engine"] == "solo":
+        # MoE: in f32, since an expert's product sees other rows alone than
+        # beside other requests, and bf16 rounds a near-tie either way
+        hold_cfg = cfg32 if cfg.family == "moe" else kc
+        if hold_cfg is not kc:
+            reqs = requests()
+            _staggered(E.BatchedEngine(model, hold_cfg, slots=4, max_len=64,
+                                          device=dev), reqs)
+        for want_req in requests():   # each request alone on a 4-slot engine
+            solo = E.BatchedEngine(model, hold_cfg, slots=4, max_len=64, device=dev)
+            solo.submit(want_req)
+            solo.run_to_completion()
+            got = reqs[want_req.rid].generated
+            check(got == want_req.generated,
+                  f"request {want_req.rid}: staggered {got} != alone {want_req.generated}")
+        held = (f"every stream equals the request served alone "
+                f"({hold_cfg.compute_dtype})")
+    else:
+        for req in requests()[:2]:
+            solo = E.BatchedEngine(model, cfg32, slots=1, max_len=64, device=dev)
+            solo.submit(req)
+            solo.run_to_completion()
+            want_toks = _greedy_decode(torch, T, model, cfg32, req.prompt, 8, 64, dev)
+            check(req.generated == want_toks,
+                  f"request {req.rid}: one-slot engine {req.generated} != greedy {want_toks}")
+        held = ("a one-slot engine equals greedy decode_step on 2 requests (f32); "
+                "staggered streams are not held to solo ones (ROADMAP.md R7)")
+    log(f"phase {n}: BatchedEngine (4 slots) served 8 requests x 8 new tokens, "
+        f"staggered, in {engine_s:.3f} s; {held}; K5 launches 0")
+    log(json.dumps({"end_to_end": "engine", "arch": arch, "slots": 4, "requests": 8,
+                    "new_tokens": new_tokens, "seconds": engine_s,
+                    "tokens_per_s": new_tokens / engine_s}))
+
+
+# --------------------------------------------------------------------------- #
 
 
 def main() -> int:
@@ -2216,6 +2634,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     p12 = phase_codesign(torch, core, KC, dev, p3)
+
+    for spec in FAMILY_PHASES:
+        torch.cuda.empty_cache()
+        family_launches = phase_family(torch, FA, T, E, C, dev, spec)
+        for kernel, count in family_launches.items():
+            fa_launches[kernel] += count
+    torch.cuda.empty_cache()
 
     kernels = []
     for name in REPLACES:

@@ -8,9 +8,8 @@ unchanged through ``WorkloadProfile.load``.
 
 The model stack's state is its weights.  Both packages keep the same
 parameter layout, so ``model_from_jax`` builds the port's model from the
-JAX package's ``init_model`` tree (as NumPy arrays) by copying: dense
-layers (``{"attn", "mlp", "ln1", "ln2"}``) and SSM layers (``{"mamba",
-"ln"}``) alike.
+JAX package's ``init_model`` tree (as NumPy arrays) by copying, for every
+family: each stacked leaf becomes a list of per-layer trees.
 """
 
 from __future__ import annotations
@@ -66,17 +65,34 @@ def machines_from_numpy(names: Sequence[str],
 def model_from_jax(cfg: ModelConfig, params: Mapping, device="cuda") -> Model:
     """The port's model from the JAX package's ``init_model`` parameter tree
     for ``cfg``, its leaves as NumPy arrays (``jax.tree.map(np.asarray,
-    params)``) with the per-layer leaves stacked along a leading ``layers``
-    axis.  Each leaf is copied to ``device`` in ``cfg.param_dtype``."""
+    params)``).  The stacks -- ``layers``, the hybrid's ``groups`` (their
+    ``rec`` leaves stacked ``(n_groups, 2, ...)``) and ``tail``, the audio
+    family's ``enc_layers`` and ``dec_layers`` -- are split into per-layer
+    trees; every other leaf is taken whole.  Each leaf is copied to
+    ``device`` in ``cfg.param_dtype``."""
     dev = resolve_device(device)
     dt = dtype_of(cfg.param_dtype)
 
-    def tensors(tree, i=None):
+    def tensors(tree, i=()):
         if isinstance(tree, Mapping):
             return {k: tensors(v, i) for k, v in tree.items()}
-        a = np.array(tree if i is None else tree[i], dtype=np.float32)
+        a = np.array(tree[i], dtype=np.float32)
         return torch.as_tensor(a).to(device=dev, dtype=dt)
 
-    layers = [tensors(params["layers"], i) for i in range(cfg.n_layers)]
-    return Model(cfg, tensors(params["embed"]), tensors(params["final_norm"]),
-                 layers)
+    def n_of(tree):
+        leaf = tree
+        while isinstance(leaf, Mapping):
+            leaf = next(iter(leaf.values()))
+        return np.shape(leaf)[0]
+
+    out = {}
+    for name, tree in params.items():
+        if name in ("layers", "tail", "enc_layers", "dec_layers"):
+            out[name] = [tensors(tree, (i,)) for i in range(n_of(tree))]
+        elif name == "groups":
+            out[name] = [{"rec": [tensors(tree["rec"], (g, j)) for j in range(2)],
+                          "att": tensors(tree["att"], (g,))}
+                         for g in range(n_of(tree))]
+        else:
+            out[name] = tensors(tree)
+    return Model(cfg, out)

@@ -6,10 +6,13 @@
 
 The JAX package's ``repro.launch.serve`` flags, plus ``--device`` (the card
 unless ``cpu`` is asked for) and ``--seed`` (the ``torch.Generator`` the
-random weights are drawn from).  The port serves the dense family
-(``--arch chatglm3-6b``, the default, ``qwen3-32b``, ``qwen1.5-4b``,
-``deepseek-67b``) and the SSM family (``falcon-mamba-7b``); the other
-families exit with the ROADMAP item that will port them.
+random weights are drawn from).  Every ``--arch`` of the registry is
+served: dense (``chatglm3-6b``, the default, ``qwen3-32b``, ``qwen1.5-4b``,
+``deepseek-67b``), SSM (``falcon-mamba-7b``), MoE (``qwen2-moe-a2.7b``,
+``grok-1-314b``), hybrid (``recurrentgemma-9b``), audio
+(``whisper-medium``) and VLM (``paligemma-3b``).  As in the JAX package
+the engine admits prompts token by token through ``decode_step``, so
+whisper's cross cache and paligemma's vision prefix stay empty.
 """
 
 from __future__ import annotations
@@ -39,11 +42,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = C.get_config(args.arch, smoke=args.smoke)
-    try:
-        T.check_family(cfg)
-    except NotImplementedError as exc:
-        print(f"serve: {exc}", file=sys.stderr)
-        return 2
     dev = resolve_device(args.device)
     model = T.init_model(cfg, torch.Generator(dev).manual_seed(args.seed), dev)
     engine = BatchedEngine(model, cfg, slots=args.slots, max_len=args.max_len,

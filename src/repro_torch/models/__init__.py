@@ -1,2 +1,2 @@
 """The model stack, ported to PyTorch: config schema, layers and the
-transformer (dense and SSM families so far)."""
+transformer (dense, MoE, SSM, hybrid, audio and VLM families)."""

@@ -1,12 +1,13 @@
-"""Neural net layers of the dense and SSM model stacks, in PyTorch.
+"""Neural net layers of every model family, in PyTorch.
 
-The dense and SSM subset of the JAX package's ``repro/models/layers.py``:
-norms, rotary embeddings, embedding and unembedding, GQA attention (causal,
+The JAX package's ``repro/models/layers.py``: norms, rotary embeddings,
+embedding and unembedding, GQA attention (self or cross; causal,
 sliding-window and prefix-LM masks; q-chunked; KV-cached with a scalar or
-per-row write index; or the flash-attention kernel K5), the MLPs, the
-depthwise causal conv and the Mamba-1 mixer (the plain chunked scan, or the
-selective-scan kernel K8).  The MoE and RG-LRU blocks come with a later
-slice (ROADMAP.md, Queue 1).
+per-row write index, or over a static cross cache; or the flash-attention
+kernel K5), the MLPs, the token-choice top-k MoE (``gmm``, ``dense`` and
+``capacity`` dispatch), the depthwise causal conv, the RG-LRU recurrent
+block and the Mamba-1 mixer (the plain chunked scan, or the selective-scan
+kernel K8).
 
 Parameters keep the JAX layout -- ``wq`` is ``(d, H, hd)``, ``wo`` is
 ``(H, hd, d)``, ``w_gate`` is ``(d, f)``, never ``nn.Linear``'s transposed
@@ -18,6 +19,7 @@ package's scales.  KV caches and recurrent states are written in place.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Mapping, Optional, Tuple
 
@@ -265,42 +267,54 @@ def attn_apply(
     mask: Optional[MaskSpec] = None,
     q_pos: Optional[torch.Tensor] = None,
     k_pos: Optional[torch.Tensor] = None,
+    kv_x: Optional[torch.Tensor] = None,
     cache: Optional[Dict[str, torch.Tensor]] = None,
     cache_index=None,
+    static_cache: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Self-attention.
+    """Self- or cross-attention.
 
     x: (B, S, D).  ``mask`` is a MaskSpec evaluated lazily against
     (q_pos, k_pos) -- per q-chunk when ``cfg.attn_q_chunk`` divides S, so the
     full (S, T) mask / score matrices are never materialized at long context.
     With ``cache`` (dict of k/v (B, S_max, K, hd)) and ``cache_index``:
     decode mode -- writes new k/v at cache_index (in place) and attends over
-    the cache.  Cross-attention (the JAX package's ``kv_x`` /
-    ``static_cache``) comes with the audio family.
+    the cache.  ``kv_x`` switches to cross-attention over its positions;
+    with a cache and ``static_cache`` (or ``kv_x``) the cache holds the
+    precomputed cross k/v, read as they are (no k-norm, no rope, no write).
     """
     cd = dtype_of(cfg.compute_dtype)
     B, S, _ = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     G = H // K
+    cross_cached = cache is not None and (static_cache or kv_x is not None)
+    self_cached = cache is not None and not cross_cached
 
     xc = x.to(cd)
     q = _matmul(xc, p["wq"].to(cd))
-    k = _matmul(xc, p["wk"].to(cd))
-    v = _matmul(xc, p["wv"].to(cd))
     if cfg.qkv_bias:
         q = q + p["bq"].to(cd)
-        k = k + p["bk"].to(cd)
-        v = v + p["bv"].to(cd)
+    if cross_cached:
+        k, v = cache["k"].to(cd), cache["v"].to(cd)
+    else:
+        src = kv_x.to(cd) if kv_x is not None else xc
+        k = _matmul(src, p["wk"].to(cd))
+        v = _matmul(src, p["wv"].to(cd))
+        if cfg.qkv_bias:
+            k = k + p["bk"].to(cd)
+            v = v + p["bv"].to(cd)
 
     if cfg.qk_norm:
         q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
-        k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
+        if not cross_cached:
+            k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
 
     if rope is not None:
         q = apply_rope(q, *rope, cfg.rope_style)
-        k = apply_rope(k, *rope, cfg.rope_style)
+        if kv_x is None and not static_cache:
+            k = apply_rope(k, *rope, cfg.rope_style)
 
-    if cache is not None:
+    if self_cached:
         assert cache_index is not None
         _write_cache(cache, k, v, cache_index)
         k, v = cache["k"].to(cd), cache["v"].to(cd)
@@ -320,8 +334,8 @@ def attn_apply(
     # (full-sequence forward) and ignores attn_logit_softcap and
     # attn_q_chunk.  It reads the (B, S, H, hd) projections through
     # strides and returns its output in the same memory order.
-    if (cfg.attn_impl == "pallas" and cache is None and not mask.everything
-            and mask.prefix_len == 0 and mask.causal):
+    if (cfg.attn_impl == "pallas" and kv_x is None and cache is None
+            and not mask.everything and mask.prefix_len == 0 and mask.causal):
         ctx = kops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=True, window=mask.window).transpose(1, 2)
@@ -337,7 +351,7 @@ def attn_apply(
     else:
         ctx = _sdpa(qg, k, v, mask.build(q_pos, k_pos), cfg)
     out = torch.matmul(ctx.reshape(B, S, H * hd), wo)
-    return out, cache
+    return out, cache if self_cached else None
 
 
 # --------------------------------------------------------------------------- #
@@ -379,7 +393,144 @@ def mlp_apply(p: Mapping, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
-# Depthwise causal conv + Mamba-1 block (falcon-mamba)
+# Mixture of Experts
+# --------------------------------------------------------------------------- #
+
+
+def moe_init(cfg: ModelConfig, generator, device) -> Dict:
+    m = cfg.moe
+    assert m is not None
+    dt = dtype_of(cfg.param_dtype)
+    d, f, E = cfg.d_model, m.d_ff_expert, m.n_experts
+    p = {
+        "router": _init_dense((d, E), dt, generator, device),
+        # 1/sqrt(E): the JAX package scales by the leading dim
+        "w_gate": _init_dense((E, d, f), dt, generator, device),
+        "w_up": _init_dense((E, d, f), dt, generator, device),
+        "w_down": _init_dense((E, f, d), dt, generator, device, scale=1.0 / math.sqrt(f)),
+    }
+    if m.n_shared_experts:
+        fs = m.d_ff_shared * m.n_shared_experts
+        p["shared"] = {
+            "w_gate": _init_dense((d, fs), dt, generator, device),
+            "w_up": _init_dense((d, fs), dt, generator, device),
+            "w_down": _init_dense((fs, d), dt, generator, device),
+        }
+        p["shared_gate"] = _init_dense((d, 1), dt, generator, device)
+    return p
+
+
+def moe_apply(p: Mapping, cfg: ModelConfig,
+              x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-choice top-k MoE.  x: (B, S, D) -> (y, aux_loss f32 scalar).
+
+    impl="gmm": sort the T*k (token, expert) rows by expert (a stable sort,
+    as ``jnp.argsort``) and run one matmul per expert that has rows on its
+    contiguous slice -- the JAX package's ``lax.ragged_dot`` -- then add
+    each row, weighted by its gate, back to its token.  Only those experts'
+    weights are cast to the compute dtype.  impl="dense": every expert on
+    every token.  impl="capacity": ``_moe_capacity``."""
+    m = cfg.moe
+    assert m is not None
+    cd = dtype_of(cfg.compute_dtype)
+    B, S, D = x.shape
+    T = B * S
+    xt = x.reshape(T, D).to(cd)
+    E, k = m.n_experts, m.top_k
+
+    logits = torch.matmul(xt, p["router"].to(cd)).float()
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(probs, k, dim=-1)                 # (T, k)
+    gates = gates / gates.sum(-1, keepdim=True)
+
+    # load-balancing aux loss (Switch-style)
+    density = F.one_hot(idx[:, 0], E).float().mean(0)
+    router_prob = probs.mean(0)
+    aux = (density * router_prob).sum() * E * m.aux_loss_weight
+
+    act = F.silu if cfg.mlp == "swiglu" else functools.partial(F.gelu, approximate="tanh")
+    if m.impl == "dense":
+        # (T, E, f) -- every expert everywhere; only for tiny configs.
+        h_g = torch.einsum("td,edf->tef", xt, p["w_gate"].to(cd))
+        h_u = torch.einsum("td,edf->tef", xt, p["w_up"].to(cd))
+        y_all = torch.einsum("tef,efd->ted", act(h_g) * h_u, p["w_down"].to(cd))
+        combine = torch.zeros((T, E), dtype=cd, device=x.device).scatter_add_(
+            1, idx, gates.to(cd))
+        y = torch.einsum("ted,te->td", y_all, combine)
+    elif m.impl == "capacity":
+        y = _moe_capacity(p, cfg, xt, gates, idx, act)
+    else:
+        flat_e = idx.reshape(-1)                               # (T*k,)
+        order = torch.argsort(flat_e, stable=True)
+        token_of = order // k
+        xs = xt[token_of]                                      # (T*k, D) grouped
+        sizes = torch.bincount(flat_e, minlength=E).tolist()
+        out = torch.empty_like(xs)
+        start = 0
+        for e, n in enumerate(sizes):
+            if n:
+                rows = slice(start, start + n)
+                h = act(torch.matmul(xs[rows], p["w_gate"][e].to(cd))) \
+                    * torch.matmul(xs[rows], p["w_up"][e].to(cd))
+                out[rows] = torch.matmul(h, p["w_down"][e].to(cd))
+                start += n
+        w = gates.reshape(-1)[order].to(cd)[:, None]
+        y = _combine(out * w, order, T, k)
+
+    if m.n_shared_experts:
+        sh = p["shared"]
+        g = torch.matmul(xt, sh["w_gate"].to(cd))
+        u = torch.matmul(xt, sh["w_up"].to(cd))
+        ys = torch.matmul(act(g) * u, sh["w_down"].to(cd))
+        sg = torch.sigmoid(torch.matmul(xt, p["shared_gate"].to(cd)).float()).to(cd)
+        y = y + ys * sg
+
+    return y.reshape(B, S, D), aux
+
+
+def _moe_capacity(p: Mapping, cfg: ModelConfig, xt: torch.Tensor,
+                  gates: torch.Tensor, idx: torch.Tensor, act) -> torch.Tensor:
+    """Capacity-based MoE dispatch (the GShard / Switch dataflow): each
+    expert takes at most C rows, in sorted order, into an (E, C, D) buffer
+    and the experts run as one batched product; rows past C are dropped.
+    One routing group: outside a mesh the JAX package's
+    ``data_parallel_groups()`` is 1."""
+    m = cfg.moe
+    cd = xt.dtype
+    T, D = xt.shape
+    E, k = m.n_experts, m.top_k
+    C = min(T * k, int(-(-T * k * m.capacity_factor // E)))
+    dev = xt.device
+
+    flat_e = idx.reshape(-1)                                   # (T*k,)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    token_of = order // k
+    counts = torch.bincount(flat_e, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(T * k, device=dev) - starts[sorted_e]  # rank within expert
+    keep = slot < C
+    buf = torch.zeros((E, C, D), dtype=cd, device=dev)
+    buf[sorted_e[keep], slot[keep]] = xt[token_of[keep]]       # past C: dropped
+    h = act(torch.matmul(buf, p["w_gate"].to(cd))) * torch.matmul(buf, p["w_up"].to(cd))
+    out = torch.matmul(h, p["w_down"].to(cd))                  # (E, C, D)
+    rows = out[sorted_e, slot.clamp_max(C - 1)]
+    w = gates.to(cd).reshape(-1)[order] * keep.to(cd)
+    return _combine(rows * w[:, None], order, T, k)
+
+
+def _combine(rows: torch.Tensor, order: torch.Tensor, T: int, k: int) -> torch.Tensor:
+    """Each token's k weighted expert rows, given in expert order (``order``
+    the sort that put them there), summed per token in its own top-k order.
+    The JAX package scatter-adds them; a sum in a fixed order is the same
+    up to rounding and, unlike a scatter-add on the card, deterministic."""
+    by_token = torch.empty_like(rows)
+    by_token[order] = rows
+    return by_token.view(T, k, -1).sum(1)
+
+
+# --------------------------------------------------------------------------- #
+# Depthwise causal conv (the RG-LRU and Mamba-1 blocks')
 # --------------------------------------------------------------------------- #
 
 
@@ -404,6 +555,92 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
         y = y + b.to(x.dtype)
     new_state = xp[:, -(width - 1):] if width > 1 else state
     return y, new_state
+
+
+# --------------------------------------------------------------------------- #
+# RG-LRU recurrent block (RecurrentGemma / Griffin)
+# --------------------------------------------------------------------------- #
+
+_LRU_BLOCKS = 8      # block-diagonal gate structure
+_LRU_C = 8.0
+
+
+def rglru_init(cfg: ModelConfig, generator, device) -> Params:
+    h = cfg.hybrid
+    assert h is not None
+    dt = dtype_of(cfg.param_dtype)
+    d = cfg.d_model
+    w = h.lru_width or d
+    wb = w // _LRU_BLOCKS
+    return {
+        "w_x": _init_dense((d, w), dt, generator, device),
+        "w_y": _init_dense((d, w), dt, generator, device),
+        "conv_w": _init_dense((h.conv_width, w), dt, generator, device, scale=0.1),
+        "conv_b": torch.zeros((w,), dtype=dt, device=device),
+        "gate_a": _init_dense((_LRU_BLOCKS, wb, wb), dt, generator, device),
+        "gate_x": _init_dense((_LRU_BLOCKS, wb, wb), dt, generator, device),
+        "lambda": torch.full((w,), 2.0, dtype=dt, device=device),  # softplus param for decay a
+        "w_out": _init_dense((w, d), dt, generator, device),
+    }
+
+
+def _lru_scan(a: torch.Tensor, bx: torch.Tensor,
+              h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t * h_{t-1} + bx_t over axis 1, step by step as the JAX
+    package's ``lax.scan`` (no reassociated parallel scan, which would
+    round otherwise).  a, bx: (B, S, W) f32 -> (ys (B, S, W), hT (B, W))."""
+    a_t = a.transpose(0, 1).contiguous()
+    b_t = bx.transpose(0, 1).contiguous()
+    hs = torch.empty_like(a_t)
+    h = h0
+    for t in range(a_t.shape[0]):
+        h = torch.addcmul(b_t[t], a_t[t], h, out=hs[t])
+    return hs.transpose(0, 1), h
+
+
+def rglru_apply(p: Mapping, cfg: ModelConfig, x: torch.Tensor, *,
+                state: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """Recurrent block: [x->conv->RG-LRU] gated by GeLU(y-branch), x (B, S,
+    D) -> (B, S, D) in the compute dtype.  The gates and the recurrence run
+    in float32.  With ``state`` (a layer's ``{"conv": (B, width-1, W),
+    "lru": (B, W)}`` cache views) the conv and the recurrence start from it
+    and the new states are written back into it in place."""
+    h = cfg.hybrid
+    assert h is not None
+    cd = dtype_of(cfg.compute_dtype)
+    x = x.to(cd)
+    B, S, _ = x.shape
+    w = p["w_x"].shape[1]
+    wb = w // _LRU_BLOCKS
+
+    xb = torch.matmul(x, p["w_x"].to(cd))
+    yb = F.gelu(torch.matmul(x, p["w_y"].to(cd)), approximate="tanh")
+    xb, new_conv = causal_conv1d(xb, p["conv_w"], p["conv_b"],
+                                 state["conv"] if state is not None else None)
+
+    # block-diagonal gates
+    xg = xb.reshape(B, S, _LRU_BLOCKS, wb).float()
+    r = torch.sigmoid(torch.einsum("bshw,hwe->bshe", xg, p["gate_a"].float())
+                      .reshape(B, S, w))
+    i = torch.sigmoid(torch.einsum("bshw,hwe->bshe", xg, p["gate_x"].float())
+                      .reshape(B, S, w))
+
+    log_a = -_LRU_C * kref.softplus(p["lambda"].float()) * r
+    a = torch.exp(log_a)
+    gated = i * xb.float()
+    bx = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-8)) * gated
+
+    h0 = state["lru"] if state is not None else x.new_zeros((B, w), dtype=torch.float32)
+    ys, hT = _lru_scan(a, bx, h0)
+    if state is not None:
+        state["conv"].copy_(new_conv)
+        state["lru"].copy_(hT)
+    return torch.matmul(ys.to(cd) * yb, p["w_out"].to(cd))
+
+
+# --------------------------------------------------------------------------- #
+# Mamba-1 block (falcon-mamba)
+# --------------------------------------------------------------------------- #
 
 
 def mamba_init(cfg: ModelConfig, generator, device) -> Params:

@@ -1,4 +1,4 @@
-"""The model stack in PyTorch (dense and SSM families so far).
+"""The model stack in PyTorch: every family of the JAX package.
 
 Public API (the JAX package's ``repro/models/transformer.py``, with the
 parameter tree replaced by an ``nn.Module``):
@@ -8,19 +8,40 @@ parameter tree replaced by an ``nn.Module``):
   init_cache(cfg, batch, max_len, device)        -> cache
   prefill(model, cfg, batch, cache)              -> (cache, logits_last)
   decode_step(model, cfg, cache, tokens, index)  -> (cache, logits)
+  encode(model, cfg, frames)                     -> encoder states (audio)
 
-``batch`` is a dict: {"tokens": (B,S) int, "labels": (B,S) int}.  ``cfg``
-is passed beside the model, as in the JAX package, so one set of weights
-runs under ``cfg.replace(attn_impl=...)`` or other execution options.
+``batch`` is a dict: {"tokens": (B,S) int, "labels": (B,S) int, and for
+the stub-frontend families "frames": (B,F,D) (audio) / "patches": (B,P,D)
+(VLM)}.  ``cfg`` is passed beside the model, as in the JAX package, so one
+set of weights runs under ``cfg.replace(attn_impl=...)`` or other
+execution options.
 
-Where the port differs: the layer ``scan`` is a Python loop over
-``Model.layers``; sharding constraints and logical axes have no
+The families: dense and VLM (attention + MLP blocks; the VLM's patches
+are a prefix its text attends to, and its hidden states and cache
+positions count past them), MoE (attention + top-k experts, whose
+Switch aux loss, summed over the layers, is ``forward``'s second
+output), SSM (Mamba-1 blocks), hybrid (groups of two RG-LRU blocks and a
+local-attention block, then the tail's RG-LRU blocks) and audio (a
+whisper encoder over frame embeddings and a decoder of self-attention,
+cross-attention and MLP blocks).
+
+Where the port differs: the layer ``scan`` is a Python loop over the
+model's stacks; sharding constraints and logical axes have no
 counterpart (``init_model`` and ``init_cache`` return no axes); the KV
-cache and the SSM's conv / scan states are written in place, and the cache
+caches and the recurrent states are written in place, and the cache
 ``forward``, ``prefill`` and ``decode_step`` return is the one they were
-given; everything runs under ``torch.inference_mode()``.  Building or
-running a family other than dense or SSM raises ``NotImplementedError``
-naming the ROADMAP item that will port it.
+given (the audio prefill replaces the cross k/v tensors inside it);
+everything runs under ``torch.inference_mode()``.  The audio forward with
+a cache (prefill) reads the cross k/v from the cache and does not run
+the encoder again, whose result the JAX package computes there and
+never reads.
+
+``attn_impl="pallas"`` routes attention to the flash-attention kernel K5
+where the JAX package routes it to its Pallas kernel: causal
+self-attention without a cache or a prefix -- every layer of a dense or
+MoE forward, the hybrid's local-attention blocks (in prefill too) and
+the audio decoder's self-attention; never the VLM (its prefix), the
+audio encoder (unmasked) or cross-attention.
 
 For the SSM family ``attn_impl="pallas"`` selects the kernels K6-K8 (the
 config schema must stay the JAX package's, so the existing "xla | pallas"
@@ -36,7 +57,7 @@ agree exactly in float32 and to bf16 rounding in bfloat16.  With
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping
+from typing import Dict, Mapping, Tuple
 
 import torch
 from torch import nn
@@ -46,63 +67,70 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.config import Family, ModelConfig
 
-Params = Dict[str, torch.Tensor]
 
+class ParamTree(nn.Module):
+    """A nested mapping of tensors as a module: a tensor becomes a frozen
+    parameter, a mapping a sub-tree and a list of mappings an
+    ``nn.ModuleList`` of sub-trees.  ``tree[name]``, ``name in tree`` and
+    ``tree.items()`` read it as the mapping it was built from."""
 
-def check_family(cfg: ModelConfig) -> None:
-    """Raise for a family the port has no stack for yet, naming the item of
-    ROADMAP.md's Queue 1 that will port it."""
-    if cfg.family in (Family.DENSE, Family.SSM):
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: the {Family(cfg.family).value} family is not ported to "
-        "PyTorch yet; ROADMAP.md Queue 1 item 3 (the MoE, hybrid, audio and "
-        "VLM families) will port it")
-
-
-def _pdict(params: Mapping[str, torch.Tensor]) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in params.items()})
-
-
-class DenseBlock(nn.Module):
-    """Pre-norm attention + MLP block; parameters in the JAX layout."""
-
-    def __init__(self, params: Mapping[str, Mapping[str, torch.Tensor]]):
+    def __init__(self, tree: Mapping):
         super().__init__()
-        self.attn = _pdict(params["attn"])
-        self.mlp = _pdict(params["mlp"])
-        self.ln1 = _pdict(params["ln1"])
-        self.ln2 = _pdict(params["ln2"])
+        for name, v in tree.items():
+            if isinstance(v, Mapping):
+                self.add_module(name, ParamTree(v))
+            elif isinstance(v, (list, tuple)):
+                self.add_module(name, nn.ModuleList(ParamTree(b) for b in v))
+            else:
+                self.register_parameter(name, nn.Parameter(v, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+    def keys(self):
+        return [*self._parameters, *self._modules]
+
+    def items(self):
+        return [(k, self[k]) for k in self.keys()]
 
 
-class SSMBlock(nn.Module):
-    """Pre-norm Mamba-1 block; parameters in the JAX layout."""
-
-    def __init__(self, params: Mapping[str, Mapping[str, torch.Tensor]]):
-        super().__init__()
-        self.mamba = _pdict(params["mamba"])
-        self.ln = _pdict(params["ln"])
+def hybrid_layout(cfg: ModelConfig) -> Tuple[int, int]:
+    """(n_groups, n_tail_rec) of the hybrid's (rec, rec, att) groups."""
+    period = len(cfg.hybrid.pattern)
+    n_groups = cfg.n_layers // period
+    return n_groups, cfg.n_layers - n_groups * period
 
 
-_BLOCKS = {Family.DENSE: DenseBlock, Family.SSM: SSMBlock}
+def _stack_lengths(cfg: ModelConfig) -> Dict[str, int]:
+    if cfg.family == Family.HYBRID:
+        n_groups, n_tail = hybrid_layout(cfg)
+        return {"groups": n_groups, "tail": n_tail}
+    if cfg.family == Family.AUDIO:
+        return {"enc_layers": cfg.n_encoder_layers, "dec_layers": cfg.n_layers}
+    return {"layers": cfg.n_layers}
 
 
-class Model(nn.Module):
-    """Embedding, the blocks of the config's family and the final norm."""
+class Model(ParamTree):
+    """A config's parameters in the JAX package's layout, each stacked
+    leaf as a list of per-layer trees: ``embed``, ``final_norm`` and
 
-    def __init__(self, cfg: ModelConfig, embed: Params, final_norm: Params,
-                 layers: List[Mapping[str, Params]]):
-        super().__init__()
-        check_family(cfg)
-        if len(layers) != cfg.n_layers:
-            raise ValueError(f"{cfg.name} has {cfg.n_layers} layers, got "
-                             f"{len(layers)}")
+      dense, VLM, MoE, SSM: ``layers`` (n_layers blocks);
+      hybrid: ``groups`` (n_layers // 3 of ``{"rec": [2 blocks], "att":
+        block}``) and ``tail`` (the remaining recurrent blocks, if any);
+      audio: ``enc_layers``, ``dec_layers``, ``enc_norm``, ``enc_pos`` and,
+        with ``decoder_pos_len``, ``dec_pos``.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: Mapping):
+        for name, n in _stack_lengths(cfg).items():
+            got = len(params.get(name, ()))
+            if got != n:
+                raise ValueError(f"{cfg.name} has {n} {name}, got {got}")
+        super().__init__(params)
         self.cfg = cfg
-        self.embed = _pdict(embed)
-        self.final_norm = _pdict(final_norm)
-        block = _BLOCKS[Family(cfg.family)]
-        self.layers = nn.ModuleList(block(p) for p in layers)
 
     @property
     def device(self) -> torch.device:
@@ -121,12 +149,37 @@ def _dense_block_init(cfg: ModelConfig, generator, device):
             "ln2": L.norm_init(cfg, device)}
 
 
+def _moe_block_init(cfg: ModelConfig, generator, device):
+    return {"attn": L.attn_init(cfg, generator, device),
+            "moe": L.moe_init(cfg, generator, device),
+            "ln1": L.norm_init(cfg, device),
+            "ln2": L.norm_init(cfg, device)}
+
+
 def _ssm_block_init(cfg: ModelConfig, generator, device):
     return {"mamba": L.mamba_init(cfg, generator, device),
             "ln": L.norm_init(cfg, device)}
 
 
-_BLOCK_INIT = {Family.DENSE: _dense_block_init, Family.SSM: _ssm_block_init}
+def _rec_block_init(cfg: ModelConfig, generator, device):
+    return {"rec": L.rglru_init(cfg, generator, device),
+            "mlp": L.mlp_init(cfg, generator, device),
+            "ln1": L.norm_init(cfg, device),
+            "ln2": L.norm_init(cfg, device)}
+
+
+def _xattn_block_init(cfg: ModelConfig, generator, device):
+    """Whisper decoder block: self-attn + cross-attn + mlp."""
+    return {"self": L.attn_init(cfg, generator, device),
+            "cross": L.attn_init(cfg, generator, device),
+            "mlp": L.mlp_init(cfg, generator, device),
+            "ln1": L.norm_init(cfg, device),
+            "ln2": L.norm_init(cfg, device),
+            "ln3": L.norm_init(cfg, device)}
+
+
+_BLOCK_INIT = {Family.DENSE: _dense_block_init, Family.VLM: _dense_block_init,
+               Family.MOE: _moe_block_init, Family.SSM: _ssm_block_init}
 
 
 @torch.no_grad()
@@ -136,19 +189,40 @@ def init_model(cfg: ModelConfig, generator: torch.Generator = None,
     from ``generator`` (a ``torch.Generator`` on that device; seed 0 when
     None).  The numbers differ from the JAX package's for the same seed:
     ``repro_torch.carry.model_from_jax`` carries its weights across."""
-    check_family(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(dev).manual_seed(0)
-    embed = L.embed_init(cfg, generator, dev)
-    final_norm = L.norm_init(cfg, dev)
-    block_init = _BLOCK_INIT[Family(cfg.family)]
-    layers = [block_init(cfg, generator, dev) for _ in range(cfg.n_layers)]
-    return Model(cfg, embed, final_norm, layers)
+    params = {"embed": L.embed_init(cfg, generator, dev),
+              "final_norm": L.norm_init(cfg, dev)}
+    n = _stack_lengths(cfg)
+    if cfg.family in _BLOCK_INIT:
+        block_init = _BLOCK_INIT[Family(cfg.family)]
+        params["layers"] = [block_init(cfg, generator, dev) for _ in range(n["layers"])]
+    elif cfg.family == Family.HYBRID:
+        params["groups"] = [
+            {"rec": [_rec_block_init(cfg, generator, dev) for _ in range(2)],
+             "att": _dense_block_init(cfg, generator, dev)}
+            for _ in range(n["groups"])]
+        if n["tail"]:
+            params["tail"] = [_rec_block_init(cfg, generator, dev)
+                              for _ in range(n["tail"])]
+    else:   # audio
+        dt = L.dtype_of(cfg.param_dtype)
+        params["enc_layers"] = [_dense_block_init(cfg, generator, dev)
+                                for _ in range(n["enc_layers"])]
+        params["dec_layers"] = [_xattn_block_init(cfg, generator, dev)
+                                for _ in range(n["dec_layers"])]
+        params["enc_norm"] = L.norm_init(cfg, dev)
+        params["enc_pos"] = L._init_dense((cfg.encoder_seq_len, cfg.d_model), dt,
+                                          generator, dev, scale=0.02)
+        if cfg.decoder_pos_len:
+            params["dec_pos"] = L._init_dense((cfg.decoder_pos_len, cfg.d_model), dt,
+                                              generator, dev, scale=0.02)
+    return Model(cfg, params)
 
 
 # --------------------------------------------------------------------------- #
-# forward (full-sequence)
+# blocks
 # --------------------------------------------------------------------------- #
 
 
@@ -158,27 +232,56 @@ def _rope_for(cfg: ModelConfig, positions: torch.Tensor):
     return L.rope_tables(positions, L.rotary_dim_of(cfg), cfg.rope_theta)
 
 
-def _dense_block_apply(bp: DenseBlock, cfg, x, *, rope, mask, q_pos=None,
-                       k_pos=None, cache=None, index=None):
+def _at(cache, i):
+    """Layer ``i``'s views (``i`` an index or a tuple of indices) of a
+    stacked cache: every tensor of the nested dict indexed by ``i``."""
+    return {k: _at(v, i) if isinstance(v, dict) else v[i] for k, v in cache.items()}
+
+
+def _dense_block_apply(bp, cfg, x, *, rope, mask, q_pos=None, k_pos=None,
+                       cache=None, index=None):
+    """Pre-norm attention + MLP block, or + MoE for a block that has one:
+    -> (x, the MoE's aux loss or None)."""
     h, _ = L.attn_apply(
         bp.attn, cfg, L.norm_apply(bp.ln1, cfg, x),
         rope=rope, mask=mask, q_pos=q_pos, k_pos=k_pos,
         cache=cache, cache_index=index,
     )
     x = x + h
-    y = L.mlp_apply(bp.mlp, cfg, L.norm_apply(bp.ln2, cfg, x))
-    return x + y
+    if "moe" in bp:
+        y, aux = L.moe_apply(bp.moe, cfg, L.norm_apply(bp.ln2, cfg, x))
+        return x + y, aux
+    return x + L.mlp_apply(bp.mlp, cfg, L.norm_apply(bp.ln2, cfg, x)), None
 
 
-def _layer_cache(cache: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
-    """Layer ``i``'s views of the stacked (n_layers, ...) cache."""
-    return {k: v[i] for k, v in cache.items()}
-
-
-def _ssm_block_apply(bp: SSMBlock, cfg, x, *, state=None):
+def _ssm_block_apply(bp, cfg, x, *, state=None):
     h = L.mamba_apply(bp.mamba, cfg, L.norm_apply(bp.ln, cfg, x), state=state,
                       scan_chunk=cfg.ssm.scan_chunk)
     return x + h
+
+
+def _rec_block_apply(bp, cfg, x, *, state=None):
+    x = x + L.rglru_apply(bp.rec, cfg, L.norm_apply(bp.ln1, cfg, x), state=state)
+    return x + L.mlp_apply(bp.mlp, cfg, L.norm_apply(bp.ln2, cfg, x))
+
+
+def _xattn_block_apply(bp, cfg, x, *, mask, q_pos=None, k_pos=None,
+                       enc_out=None, cache=None, index=None):
+    """Whisper decoder block.  With ``cache`` ({"self", "cross"} layer
+    views) the self-attention writes its k/v at ``index`` and the
+    cross-attention reads the static cross k/v; else it attends over
+    ``enc_out``."""
+    h, _ = L.attn_apply(
+        bp["self"], cfg, L.norm_apply(bp.ln1, cfg, x),
+        mask=mask, q_pos=q_pos, k_pos=k_pos,
+        cache=cache["self"] if cache is not None else None, cache_index=index,
+    )
+    x = x + h
+    cross = cache["cross"] if cache is not None else None
+    h, _ = L.attn_apply(bp.cross, cfg, L.norm_apply(bp.ln2, cfg, x),
+                        kv_x=enc_out, cache=cross, static_cache=cross is not None)
+    x = x + h
+    return x + L.mlp_apply(bp.mlp, cfg, L.norm_apply(bp.ln3, cfg, x))
 
 
 def _ssm_stack(model: Model, cfg: ModelConfig, x: torch.Tensor, cache=None):
@@ -186,7 +289,7 @@ def _ssm_stack(model: Model, cfg: ModelConfig, x: torch.Tensor, cache=None):
     each block's conv / scan states start from it and are written back.
     Under ``attn_impl="pallas"`` (with RMSNorm) the norms and residual adds
     run as K6 + K7 (module docstring)."""
-    states = ([_layer_cache(cache, i) for i in range(len(model.layers))]
+    states = ([_at(cache, i) for i in range(len(model.layers))]
               if cache is not None else [None] * len(model.layers))
     if cfg.attn_impl != "pallas" or cfg.norm != "rmsnorm":
         for bp, st in zip(model.layers, states):
@@ -202,16 +305,77 @@ def _ssm_stack(model: Model, cfg: ModelConfig, x: torch.Tensor, cache=None):
     return normed
 
 
+def _ring_write(bp, cfg, x, rope, kv) -> None:
+    """The hybrid prefill's cache write: the local-attention block's k/v of
+    the last ``min(W, S)`` positions of x, at ring slots ``(S - take +
+    arange(take)) % W`` of its (B, W, K, hd) layer views -- computed as the
+    JAX package computes them (no bias, no k-norm)."""
+    cd = L.dtype_of(cfg.compute_dtype)
+    xn = L.norm_apply(bp.ln1, cfg, x).to(cd)
+    k = L._matmul(xn, bp.attn["wk"].to(cd))
+    v = L._matmul(xn, bp.attn["wv"].to(cd))
+    if rope is not None:
+        k = L.apply_rope(k, *rope, cfg.rope_style)
+    W, S = kv["k"].shape[1], k.shape[1]
+    take = min(W, S)
+    slots = (S - take + torch.arange(take, device=x.device)) % W
+    kv["k"][:, slots] = k[:, S - take:].to(kv["k"].dtype)
+    kv["v"][:, slots] = v[:, S - take:].to(kv["v"].dtype)
+
+
+def _hybrid_stack(model: Model, cfg: ModelConfig, x, *, rope, mask, q_pos,
+                  k_pos, cache=None, index=None):
+    """The hybrid's groups and tail over x.  With ``index`` (decode) the
+    local-attention blocks write and attend over their ring caches; with a
+    cache and no index (prefill) they attend over x itself and then write
+    the ring (``_ring_write``); the recurrent blocks carry their states
+    through the cache either way."""
+    for g, gp in enumerate(model.groups):
+        c = _at(cache["groups"], g) if cache is not None else None
+        for j, bp in enumerate(gp.rec):
+            x = _rec_block_apply(bp, cfg, x,
+                                 state=_at(c["rec"], j) if c is not None else None)
+        if index is not None:
+            x, _ = _dense_block_apply(gp.att, cfg, x, rope=rope, mask=mask, q_pos=q_pos,
+                                      k_pos=k_pos, cache=c["att"], index=index)
+        else:
+            if c is not None:
+                _ring_write(gp.att, cfg, x, rope, c["att"])
+            x, _ = _dense_block_apply(gp.att, cfg, x, rope=rope, mask=mask,
+                                      q_pos=q_pos, k_pos=k_pos)
+    for i, bp in enumerate(model.tail if "tail" in model else ()):
+        x = _rec_block_apply(bp, cfg, x,
+                             state=_at(cache["tail"], i) if cache is not None else None)
+    return x
+
+
+# --------------------------------------------------------------------------- #
+# forward (full-sequence)
+# --------------------------------------------------------------------------- #
+
+
+@torch.inference_mode()
+def encode(model: Model, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper encoder over stub frame embeddings (B, F, D): unmasked
+    attention, no rope, learned positions."""
+    x = frames.to(device=model.device, dtype=L.dtype_of(cfg.compute_dtype))
+    x = x + model.enc_pos[:x.shape[1]].to(x.dtype)
+    mask = L.MaskSpec(everything=True)
+    enc_cfg = cfg.replace(rope_style="none")
+    for bp in model.enc_layers:
+        x, _ = _dense_block_apply(bp, enc_cfg, x, rope=None, mask=mask)
+    return L.norm_apply(model.enc_norm, cfg, x)
+
+
 @torch.inference_mode()
 def forward(model: Model, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
             cache=None):
     """Full-sequence forward -> (hidden (B,S,D), aux_loss[, cache]).
 
-    With ``cache`` (prefill mode) the per-layer k/v, or the SSM's states,
-    are written in the same pass (single-pass prefill; no recompute).  The
-    SSM's prefill starts from the states the cache holds, as the JAX
-    package's does."""
-    check_family(cfg)
+    With ``cache`` (prefill mode) the per-layer k/v, or the recurrent
+    states, are written in the same pass (single-pass prefill; no
+    recompute).  The SSM's and the hybrid's prefill start from the states
+    the cache holds, as the JAX package's do."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = L.embed_apply(model.embed, cfg, tokens)
@@ -219,21 +383,49 @@ def forward(model: Model, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
     if cfg.family == Family.SSM:
         x = _ssm_stack(model, cfg, x, cache)
         return (x, aux, cache) if cache is not None else (x, aux)
+    prefix_len = 0
+    if cfg.family == Family.VLM:
+        patches = batch["patches"].to(device=x.device, dtype=x.dtype)  # SigLIP stub
+        x = torch.cat([patches, x], dim=1)
+        prefix_len = patches.shape[1]
+        S = x.shape[1]
     positions = torch.arange(S, device=x.device).expand(B, S)
     rope = _rope_for(cfg, positions)
-    mask = L.MaskSpec(causal=True, window=cfg.attn_window)
-    if cache is not None:
-        S_cache = cache["k"].shape[2]
-        k_pos = torch.arange(S_cache, device=x.device).expand(B, S_cache)
+
+    if cfg.family == Family.HYBRID:
+        mask = L.MaskSpec(causal=True, window=cfg.attn_window)
+        x = _hybrid_stack(model, cfg, x, rope=rope, mask=mask, q_pos=positions,
+                          k_pos=positions, cache=cache)
+    elif cfg.family == Family.AUDIO:
+        if "dec_pos" in model:
+            x = x + model.dec_pos[:S].to(x.dtype)
+        mask = L.MaskSpec(causal=True)
+        if cache is not None:
+            S_cache = cache["self"]["k"].shape[2]
+            k_pos = torch.arange(S_cache, device=x.device).expand(B, S_cache)
+            for i, bp in enumerate(model.dec_layers):
+                x = _xattn_block_apply(bp, cfg, x, mask=mask, q_pos=positions,
+                                       k_pos=k_pos, cache=_at(cache, i), index=0)
+        else:
+            enc = encode(model, cfg, batch["frames"])
+            for bp in model.dec_layers:
+                x = _xattn_block_apply(bp, cfg, x, mask=mask, q_pos=positions,
+                                       k_pos=positions, enc_out=enc)
+    else:   # dense, VLM, MoE
+        mask = L.MaskSpec(causal=True, window=cfg.attn_window, prefix_len=prefix_len)
+        k_pos = positions
+        if cache is not None:
+            S_cache = cache["k"].shape[2]
+            k_pos = torch.arange(S_cache, device=x.device).expand(B, S_cache)
         for i, bp in enumerate(model.layers):
-            x = _dense_block_apply(bp, cfg, x, rope=rope, mask=mask,
-                                   q_pos=positions, k_pos=k_pos,
-                                   cache=_layer_cache(cache, i), index=0)
-    else:
-        for bp in model.layers:
-            x = _dense_block_apply(bp, cfg, x, rope=rope, mask=mask,
-                                   q_pos=positions, k_pos=positions)
+            x, layer_aux = _dense_block_apply(
+                bp, cfg, x, rope=rope, mask=mask, q_pos=positions, k_pos=k_pos,
+                cache=_at(cache, i) if cache is not None else None, index=0)
+            if layer_aux is not None:
+                aux = aux + layer_aux
     x = L.norm_apply(model.final_norm, cfg, x)
+    if prefix_len:
+        x = x[:, prefix_len:]   # loss only over text positions
     if cache is not None:
         return x, aux, cache
     return x, aux
@@ -281,28 +473,66 @@ def loss_fn(model: Model, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]):
 # --------------------------------------------------------------------------- #
 
 
-def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
-               device="cuda") -> Dict[str, torch.Tensor]:
-    """Decode cache.  Dense: k, v (n_layers, B, S, K, hd) in the compute
-    dtype, max_len = full context length (S = min(max_len, attn_window)).
-    SSM: conv (n_layers, B, conv_width - 1, Din) in the compute dtype and
-    ssm (n_layers, B, Din, N) in float32, whatever max_len."""
-    check_family(cfg)
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device="cuda"):
+    """Decode cache, zeros, shaped as the JAX package's; max_len = full
+    context length.
+
+      dense, MoE, VLM: k, v (n_layers, B, S, K, hd) in the compute dtype,
+        S = max_len (+ n_vision_tokens for the VLM), at most attn_window;
+      SSM: conv (n_layers, B, conv_width - 1, Din) in the compute dtype and
+        ssm (n_layers, B, Din, N) in float32, whatever max_len;
+      hybrid: {"groups": {"rec": {conv (G, 2, B, conv_width - 1, W_lru),
+        lru (G, 2, B, W_lru) f32}, "att": k, v (G, B, W, K, hd)}, "tail":
+        {conv, lru} (n_tail, ...)}, W = min(max_len, attn_window);
+      audio: {"self": k, v (n_layers, B, max_len, K, hd), "cross": k, v
+        (n_layers, B, encoder_seq_len, K, hd)}.
+    """
     dev = resolve_device(device)
     cd = L.dtype_of(cfg.compute_dtype)
+    B = batch_size
+
+    def kv(n, S):
+        shape = (n, B, S, cfg.n_kv_heads, cfg.head_dim_)
+        return {"k": torch.zeros(shape, dtype=cd, device=dev),
+                "v": torch.zeros(shape, dtype=cd, device=dev)}
+
     if cfg.family == Family.SSM:
         s = cfg.ssm
         d_in = s.expand * cfg.d_model
-        return {"conv": torch.zeros((cfg.n_layers, batch_size, s.conv_width - 1, d_in),
+        return {"conv": torch.zeros((cfg.n_layers, B, s.conv_width - 1, d_in),
                                     dtype=cd, device=dev),
-                "ssm": torch.zeros((cfg.n_layers, batch_size, d_in, s.state_dim),
+                "ssm": torch.zeros((cfg.n_layers, B, d_in, s.state_dim),
                                    dtype=torch.float32, device=dev)}
-    S = max_len
+    if cfg.family == Family.HYBRID:
+        h = cfg.hybrid
+        w = h.lru_width or cfg.d_model
+        n_groups, n_tail = hybrid_layout(cfg)
+        W = min(max_len, cfg.attn_window or max_len)
+
+        def rec_state(*lead):
+            return {"conv": torch.zeros(lead + (B, h.conv_width - 1, w), dtype=cd,
+                                        device=dev),
+                    "lru": torch.zeros(lead + (B, w), dtype=torch.float32, device=dev)}
+
+        cache = {"groups": {"rec": rec_state(n_groups, 2), "att": kv(n_groups, W)}}
+        if n_tail:
+            cache["tail"] = rec_state(n_tail)
+        return cache
+    if cfg.family == Family.AUDIO:
+        return {"self": kv(cfg.n_layers, max_len),
+                "cross": kv(cfg.n_layers, cfg.encoder_seq_len)}
+    S = max_len + (cfg.n_vision_tokens if cfg.family == Family.VLM else 0)
     if cfg.attn_window:
         S = min(S, cfg.attn_window)
-    shape = (cfg.n_layers, batch_size, S, cfg.n_kv_heads, cfg.head_dim_)
-    return {"k": torch.zeros(shape, dtype=cd, device=dev),
-            "v": torch.zeros(shape, dtype=cd, device=dev)}
+    return kv(cfg.n_layers, S)
+
+
+def _ring_positions(positions: torch.Tensor, W: int) -> torch.Tensor:
+    """The position ring slot i holds when the newest is ``positions``
+    (B, 1): the latest p <= position with p % W == i.  Slots not written
+    yet get positions below 0 and stay unmasked, as in the JAX package."""
+    slots = torch.arange(W, device=positions.device).expand(positions.shape[0], W)
+    return positions - ((positions - slots) % W)
 
 
 @torch.inference_mode()
@@ -314,8 +544,10 @@ def decode_step(model: Model, cfg: ModelConfig, cache, tokens: torch.Tensor,
     Returns (cache, logits (B, 1, V)).
 
     The SSM family ignores ``index``: every row advances its own conv and
-    scan state by one token, as in the JAX package."""
-    check_family(cfg)
+    scan state by one token, as in the JAX package.  The VLM's positions
+    count past its ``n_vision_tokens`` prefix slots; the hybrid's local
+    attention writes ring slot ``index % W``; the audio decoder reads the
+    cross cache and never writes it."""
     B = tokens.shape[0]
     x = L.embed_apply(model.embed, cfg, tokens)
     if cfg.family == Family.SSM:
@@ -323,29 +555,51 @@ def decode_step(model: Model, cfg: ModelConfig, cache, tokens: torch.Tensor,
         return cache, L.unembed_apply(model.embed, cfg, x)
     if torch.is_tensor(index) and index.dim():
         index = index.to(device=x.device, dtype=torch.long)
-        positions = index.reshape(B, 1)
+        per_row = True
     else:
         # one host read of a shared index, not one per layer's cache write
         index = int(index)
+        per_row = False
+    if cfg.family == Family.VLM:
+        index = index + cfg.n_vision_tokens   # cache slots are absolute
+    if per_row:
+        positions = index.reshape(B, 1)
+    else:
         positions = torch.full((B, 1), index, dtype=torch.long, device=x.device)
     rope = _rope_for(cfg, positions)
 
-    S_cache = cache["k"].shape[2]
-    slots = torch.arange(S_cache, device=x.device).expand(B, S_cache)
-    if cfg.attn_window and S_cache <= cfg.attn_window:
-        # ring-buffer slots; slot i holds the latest position p <= index with
-        # p % S_cache == i (positions broadcasts (B, 1) against (B, S))
-        k_pos = positions - ((positions - slots) % S_cache)
-        write_index = index % S_cache
-    else:
-        k_pos = slots
-        write_index = index
-    mask = L.MaskSpec(causal=True, window=cfg.attn_window)
-
-    for i, bp in enumerate(model.layers):
-        x = _dense_block_apply(bp, cfg, x, rope=rope, mask=mask,
-                               q_pos=positions, k_pos=k_pos,
-                               cache=_layer_cache(cache, i), index=write_index)
+    if cfg.family == Family.HYBRID:
+        W = cache["groups"]["att"]["k"].shape[2]
+        mask = L.MaskSpec(causal=True, window=cfg.attn_window)
+        x = _hybrid_stack(model, cfg, x, rope=rope, mask=mask, q_pos=positions,
+                          k_pos=_ring_positions(positions, W), cache=cache,
+                          index=index % W)
+    elif cfg.family == Family.AUDIO:
+        if "dec_pos" in model:
+            if per_row:
+                x = x + model.dec_pos[index][:, None].to(x.dtype)
+            else:   # lax.dynamic_slice_in_dim clamps the start
+                i = min(max(index, 0), model.dec_pos.shape[0] - 1)
+                x = x + model.dec_pos[i:i + 1].to(x.dtype)[None]
+        S_cache = cache["self"]["k"].shape[2]
+        k_pos = torch.arange(S_cache, device=x.device).expand(B, S_cache)
+        mask = L.MaskSpec(causal=True)
+        for i, bp in enumerate(model.dec_layers):
+            x = _xattn_block_apply(bp, cfg, x, mask=mask, q_pos=positions, k_pos=k_pos,
+                                   cache=_at(cache, i), index=index)
+    else:   # dense, MoE, VLM
+        S_cache = cache["k"].shape[2]
+        if cfg.attn_window and S_cache <= cfg.attn_window:
+            k_pos = _ring_positions(positions, S_cache)
+            write_index = index % S_cache
+        else:
+            k_pos = torch.arange(S_cache, device=x.device).expand(B, S_cache)
+            write_index = index
+        mask = L.MaskSpec(causal=True, window=cfg.attn_window)
+        for i, bp in enumerate(model.layers):
+            x, _ = _dense_block_apply(bp, cfg, x, rope=rope, mask=mask,
+                                      q_pos=positions, k_pos=k_pos,
+                                      cache=_at(cache, i), index=write_index)
     x = L.norm_apply(model.final_norm, cfg, x)
     logits = L.unembed_apply(model.embed, cfg, x)
     return cache, logits
@@ -357,7 +611,16 @@ def prefill(model: Model, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
     """Run the full prompt, fill the cache, return (cache, last-token logits).
 
     Single-pass: cache writes happen inside the same forward (no recompute).
+    The audio family first encodes ``batch["frames"]`` and puts each decoder
+    layer's cross k/v (no bias, as the JAX package computes them) into
+    ``cache["cross"]``.
     """
+    if cfg.family == Family.AUDIO:
+        cd = L.dtype_of(cfg.compute_dtype)
+        enc = encode(model, cfg, batch["frames"]).to(cd)
+        cache["cross"].update(
+            k=torch.stack([L._matmul(enc, bp.cross["wk"].to(cd)) for bp in model.dec_layers]),
+            v=torch.stack([L._matmul(enc, bp.cross["wv"].to(cd)) for bp in model.dec_layers]))
     hidden, _, cache = forward(model, cfg, batch, cache=cache)
     logits = L.unembed_apply(model.embed, cfg, hidden[:, -1:])
     return cache, logits

@@ -1,21 +1,28 @@
 """Serving: prefill/decode steps and a batched continuous-batching scheduler.
 
 ``make_serve_step(cfg)`` returns the one-token decode step: given a KV
-cache covering ``seq_len`` context (or the SSM's conv and scan states),
-decode exactly one new token per sequence.  The engine prefills token by
-token through that step, as the JAX package's engine does, so it never
-reaches the full-sequence flash-attention kernel K5; with the SSM family
-under ``attn_impl="pallas"`` every step runs K6, K7 and K8.
+cache covering ``seq_len`` context (or the recurrent states), decode
+exactly one new token per sequence, for every family the port has: dense,
+MoE, SSM, hybrid, audio and VLM.  The engine prefills token by token
+through that step, as the JAX package's engine does, so it never reaches
+the full-sequence flash-attention kernel K5; with the SSM family under
+``attn_impl="pallas"`` every step runs K6, K7 and K8.
 
-The engine reproduces the JAX package's, including a behaviour that is
-harmless for a KV cache and not for a recurrent state (ROADMAP.md, R7):
-every lockstep step decodes a dummy token 0 in each slot that is not
-being prefilled or decoded, and a slot's state is not reset when a request
-is admitted.  A KV slot's dummy write is overwritten by its next real
-token; an SSM slot's conv and scan states advance on the dummy token, and
-a reused slot starts from the last request's state.  So with the SSM
-family a stream served beside others, or in a reused slot, may differ
-from the same request served alone in a fresh engine.
+The engine reproduces the JAX package's, including two behaviours of
+its (ROADMAP.md, R7 and R8):
+
+* R7: every lockstep step decodes a dummy token 0 in each slot that is
+  not being prefilled or decoded, and a slot's state is not reset when a
+  request is admitted.  A KV slot's dummy write is overwritten by its
+  next real token; a recurrent slot's state (the SSM's conv and scan
+  states, the hybrid's conv and LRU states) advances on the dummy token,
+  and a reused slot starts from the last request's state.  So with those
+  families a stream served beside others, or in a reused slot, may
+  differ from the same request served alone in a fresh engine.
+* R8: the cache comes from ``init_cache`` and only ``decode_step`` ever
+  writes it, so whisper's cross k/v stay zero (no encoder runs) and
+  paligemma's vision-prefix slots stay empty (no patches are seen) while
+  a request is served.  Both are attended as they are.
 """
 
 from __future__ import annotations
