@@ -60,6 +60,8 @@ _SIGNATURES = {
                                    _L, _I, _I, _I, _F, _P],
     # head dim -> the FMA kernel's dynamic shared memory in bytes
     "repro_flash_attention_smem_bytes": [_I],
+    # ... and the tensor-core kernel's
+    "repro_flash_attention_sm90_smem_bytes": [_I],
     # x, scale, out; rows, d, eps, x dtype, scale dtype, vec, stream
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
     # x, residual, scale, out, h; rows, d, eps, x dtype, scale dtype, vec, stream

@@ -10,8 +10,11 @@ mask the ragged S and T edges themselves.
 
 * ``"wgmma"``, ``src/repro_torch/csrc/flash_attention_sm90.cu``: bf16 on the
   tensor cores (wgmma, K / V streamed by TMA), for bfloat16 q, k, v with a
-  head dim of 64 or 128, a positive scale, 16-byte-aligned bases and strides
-  that are multiples of 8 elements.  It rounds P to bf16 before P V.
+  head dim of 64, 128 or 256, a positive scale, 16-byte-aligned bases and
+  strides that are multiples of 8 elements.  Its CTA takes 128 query rows
+  against key tiles of 128 keys at D 64 / 128 and 80 at D 256 (where O
+  alone fills half a consumer thread's registers).  It rounds P to bf16
+  before P V and sums the rounded P into the row sum.
 * ``"fma"``, ``src/repro_torch/csrc/flash_attention.cu``: float32 FMAs, for
   everything else the kernels take: float32 (tensor cores would round it to
   TF32), other head dims up to 256, unaligned bases or strides, a scale
@@ -39,7 +42,7 @@ from repro_torch.kernels.ref import flash_attention_ref as plain_flash_attention
 
 MAX_HEAD_DIM = 256
 #: Head dims the tensor-core kernel is built for.
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _WINDOW_LIMIT = 2 ** 30   # |window| beyond any sequence the kernel indexes
 
@@ -87,8 +90,8 @@ def _on_kernel(q, k, v) -> bool:
 
 def _route(dtype: torch.dtype, head_dim: int, kv_len: int, scale: float,
            data_ptrs, strides) -> str:
-    """Which kernel takes a CUDA call: ``"wgmma"`` for bf16 with a head dim of
-    64 or 128, keys to attend to, a positive scale (its softmax takes the
+    """Which kernel takes a CUDA call: ``"wgmma"`` for bf16 with a head dim in
+    ``WGMMA_HEAD_DIMS``, keys to attend to, a positive scale (its softmax takes the
     row max before scaling), 16-byte-aligned ``data_ptrs`` and every
     (batch, head, position) stride of a dim longer than 1 (``strides``) a
     positive multiple of 8 elements, as TMA needs; ``"fma"`` otherwise."""

@@ -576,8 +576,12 @@ def decode_step(model: Model, cfg: ModelConfig, cache, tokens: torch.Tensor,
                           index=index % W)
     elif cfg.family == Family.AUDIO:
         if "dec_pos" in model:
-            if per_row:
-                x = x + model.dec_pos[index][:, None].to(x.dtype)
+            if per_row:   # jnp.take: NaN rows outside [-n, n), negatives wrap
+                n = model.dec_pos.shape[0]
+                inside = (index >= -n) & (index < n)
+                rows = model.dec_pos[torch.where(inside, index, 0)]
+                rows = torch.where(inside[:, None], rows, float("nan"))
+                x = x + rows[:, None].to(x.dtype)
             else:   # lax.dynamic_slice_in_dim clamps the start
                 i = min(max(index, 0), model.dec_pos.shape[0] - 1)
                 x = x + model.dec_pos[i:i + 1].to(x.dtype)[None]

@@ -395,6 +395,32 @@ def test_decode_leaves_the_whisper_cross_cache_unwritten(name):
     assert max_err(enc, j_enc) < HIDDEN_TOL
 
 
+def test_row_index_past_the_decoder_position_table_gives_nan_as_jax_does():
+    """Per-row decode indices at and past ``decoder_pos_len``: the JAX
+    package's ``jnp.take`` fills those rows of the table with NaN (its
+    default out-of-bounds mode), so their logits are NaN; the rows inside
+    the table decode as usual."""
+    n = 4
+    p = Pair("audio", decoder_pos_len=n)
+    B, S, P = 3, 8, 2
+    jb, tb = make_batch(p.pcfg, B, S, seed=3)
+    index = np.array([n - 1, n, n + 2])
+    jcache, _ = JT.init_cache(p.jcfg, B, S)
+    jcache, _ = JT.prefill(p.params, p.jcfg, without_labels(jb, P), jcache)
+    _, want = JT.decode_step(p.params, p.jcfg, jcache, jb["tokens"][:, P:P + 1],
+                             jnp.asarray(index, jnp.int32))
+    want = np.asarray(want)
+    assert np.isfinite(want[0]).all() and np.isnan(want[1:]).all()
+
+    tcache = PT.init_cache(p.pcfg, B, S, device="cpu")
+    tcache, _ = PT.prefill(p.model, p.pcfg, without_labels(tb, P), tcache)
+    _, got = PT.decode_step(p.model, p.pcfg, tcache, tb["tokens"][:, P:P + 1],
+                            torch.as_tensor(index))
+    got = got.numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert rel_err(got[0], want[0]) < DECODE_RTOL
+
+
 # --------------------------------------------------------------------------- #
 # Serving engine
 # --------------------------------------------------------------------------- #

@@ -158,33 +158,44 @@ def test_wrapper_rejects_bad_inputs():
 # The tensor-core kernel (flash_attention_sm90.cu): its arithmetic and route
 # --------------------------------------------------------------------------- #
 
-WGMMA_TILE = 128   # query rows per CTA and keys per tile of the kernel
-#: (B, H, K, S, T, D) around the kernel's 128-row tile, at its two head dims
+def wgmma_tiles(head_dim):
+    """(query rows a CTA, keys a tile) of the tensor-core kernel's
+    instantiation for ``head_dim`` (64, 128 or 256)."""
+    return (128, 128) if head_dim <= 128 else (128, 80)
+
+
+#: (B, H, K, S, T, D) around the kernel's 128-row tile, at head dims 64, 128
 WGMMA_EDGES = [(1, 4, 2, n, n, d) for n in (127, 128, 129, 255) for d in (64, 128)]
+#: ... and at head dim 256 around its 80-key tiles and 64-row halves, MQA
+#: as recurrentgemma-9b
+WGMMA_D256_EDGES = [(1, 4, 1, n, n, 256)
+                    for n in (63, 64, 65, 79, 80, 81, 127, 128, 129, 159, 160, 161, 257)]
 
 
 def emulate_wgmma_attention(q, k, v, *, causal=True, window=None, scale=None):
     """The tensor-core kernel's arithmetic step for step in plain torch (a
     model for these tests, on no path of the port): bf16 q, k products
-    summed in float32; an online softmax in float32 over 128-key tiles --
-    only the tiles the masks leave live -- in log2 units with 2^x; P rounded
-    to bf16 before a float32 P V; one division by l at the end, rows with no
+    summed in float32; an online softmax in float32 over the key tiles of
+    ``wgmma_tiles(D)`` -- only the tiles the masks leave live -- in log2
+    units with 2^x; P rounded to bf16 before a float32 P V and before it is
+    added into the row sum l; one division by l at the end, rows with no
     live key 0."""
     B, H, S, D = q.shape
     K, T = k.shape[1], k.shape[2]
+    bq, bkv = wgmma_tiles(D)
     c = (scale if scale is not None else 1.0 / math.sqrt(D)) * math.log2(math.e)
     qf = q.bfloat16().float()
     kf, vf = (t.bfloat16().float().repeat_interleave(H // K, dim=1) for t in (k, v))
     out = torch.zeros(B, H, S, D)
-    for q0 in range(0, S, WGMMA_TILE):
-        rows = torch.arange(q0, min(q0 + WGMMA_TILE, S))[:, None]
-        kv_hi = min(T, q0 + WGMMA_TILE, S) if causal else T
+    for q0 in range(0, S, bq):
+        rows = torch.arange(q0, min(q0 + bq, S))[:, None]
+        kv_hi = min(T, q0 + bq, S) if causal else T
         kv_lo = min(T, max(0, q0 - window + 1)) if window is not None else 0
         m = torch.full((B, H, len(rows), 1), -math.inf)
         l = torch.zeros_like(m)
         acc = torch.zeros(B, H, len(rows), D)
-        for k0 in range(kv_lo // WGMMA_TILE * WGMMA_TILE, kv_hi, WGMMA_TILE):
-            cols = torch.arange(k0, min(k0 + WGMMA_TILE, T))[None, :]
+        for k0 in range(kv_lo // bkv * bkv, kv_hi, bkv):
+            cols = torch.arange(k0, min(k0 + bkv, T))[None, :]
             s = qf[:, :, rows[:, 0]] @ kf[:, :, cols[0]].transpose(-1, -2)
             live = torch.ones(len(rows), cols.shape[1], dtype=torch.bool)
             if causal:
@@ -195,9 +206,9 @@ def emulate_wgmma_attention(q, k, v, *, causal=True, window=None, scale=None):
             m_new = torch.maximum(m, s.amax(-1, keepdim=True) * c)
             mu = m_new.masked_fill(m_new == -math.inf, 0.0)
             alpha = torch.exp2(m - mu)
-            p = torch.exp2(s * c - mu)
+            p = torch.exp2(s * c - mu).bfloat16().float()
             l = l * alpha + p.sum(-1, keepdim=True)
-            acc = acc * alpha + p.bfloat16().float() @ vf[:, :, cols[0]]
+            acc = acc * alpha + p @ vf[:, :, cols[0]]
             m = m_new
         out[:, :, rows[:, 0]] = torch.where(l == 0, 0.0, acc / l)
     return out.to(q.dtype)
@@ -236,6 +247,44 @@ def test_tensor_core_rounding_at_the_tile_edges(jx, shape, window):
     oracle = jx.ref.flash_attention_ref(*(jx.np.asarray(a, jx.np.bfloat16) for a in arrays),
                                         causal=True, window=window)
     np.testing.assert_allclose(to_np(got), to_np(oracle), atol=2e-2, rtol=2e-2)
+
+
+def _one_block_unless_divisible(n):
+    """The Pallas kernel's block along a sequence of n: ``_block(n)`` where
+    that is 16 or more, else the whole sequence as one block (interpret mode
+    pays per grid step, and a ragged n has no larger divisor)."""
+    return _block(n) if _block(n) >= 16 else n
+
+
+@pytest.mark.parametrize("window", [None, 64, 0],
+                         ids=["causal", "causal-window64", "no-live-key"])
+@pytest.mark.parametrize("shape", WGMMA_D256_EDGES, ids=lambda s: "x".join(map(str, s)))
+def test_tensor_core_d256_tiles_match_the_pallas_kernel(jx, shape, window):
+    """The 80-key tiles at head dim 256 (query tiles of 128 rows, each key
+    tile visited by both 64-row halves) against the Pallas kernel in
+    interpret mode and the plain version, at 2e-2.  Window 0 leaves every
+    row with no live key: the plain version and the JAX oracle write it as
+    0, and so does the kernel; the Pallas kernel does so only for rows whose
+    whole block it skips (inside a live block its -1e30 mask gives such a
+    row the mean of V), so that case is held to the oracle."""
+    arrays = qkv(shape, seed=sum(shape))
+    tq, tk, tv = (torch.as_tensor(a).bfloat16() for a in arrays)
+    got = emulate_wgmma_attention(tq, tk, tv, causal=True, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    want = FA.plain_flash_attention(tq, tk, tv, causal=True, window=window)
+    np.testing.assert_allclose(to_np(got), to_np(want), atol=2e-2, rtol=2e-2)
+    B, H, K, S, T, D = shape
+    jq, jk, jv = (jx.np.asarray(a, jx.np.bfloat16) for a in arrays)
+    if window == 0:
+        assert torch.equal(got, torch.zeros_like(got))
+        oracle = jx.ref.flash_attention_ref(jq, jk, jv, causal=True, window=window)
+        np.testing.assert_array_equal(to_np(oracle), to_np(got))
+        return
+    pallas = jx.ops.flash_attention(jq, jk, jv, causal=True, window=window,
+                                    block_q=_one_block_unless_divisible(S),
+                                    block_kv=_one_block_unless_divisible(T),
+                                    interpret=True)
+    np.testing.assert_allclose(to_np(got), to_np(pallas), atol=2e-2, rtol=2e-2)
 
 
 # --------------------------------------------------------------------------- #
@@ -357,12 +406,14 @@ MODEL_STRIDES = [2048 * 32 * 128, 128, 32 * 128] * 2 + [2048 * 2 * 128, 128, 2 *
     (torch.bfloat16, 64, 1, 0.125, ALIGNED, [8, 64 * 8, 64], "wgmma"),
     (torch.float32, 128, 2048, 0.088, ALIGNED, MODEL_STRIDES, "fma"),
     (torch.bfloat16, 80, 2048, 0.1, ALIGNED, MODEL_STRIDES, "fma"),
-    (torch.bfloat16, 256, 2048, 0.06, ALIGNED, MODEL_STRIDES, "fma"),
+    (torch.bfloat16, 256, 2048, 0.06, ALIGNED, MODEL_STRIDES, "wgmma"),
+    (torch.bfloat16, 256, 2048, 0.06, ALIGNED[:3] + [ALIGNED[3] + 2], MODEL_STRIDES, "fma"),
     (torch.bfloat16, 128, 2048, 0.088, ALIGNED[:3] + [ALIGNED[3] + 2], MODEL_STRIDES, "fma"),
     (torch.bfloat16, 128, 2048, 0.088, ALIGNED, MODEL_STRIDES[:-1] + [129], "fma"),
     (torch.bfloat16, 128, 0, 0.088, ALIGNED, MODEL_STRIDES, "fma"),
     (torch.bfloat16, 128, 2048, -0.088, ALIGNED, MODEL_STRIDES, "fma"),
-], ids=["bf16-d128-model", "bf16-d64", "f32", "d80", "d256", "base-off-by-2-bytes",
+], ids=["bf16-d128-model", "bf16-d64", "f32", "d80", "d256", "d256-base-off-by-2-bytes",
+        "base-off-by-2-bytes",
         "odd-stride", "no-keys", "negative-scale"])
 def test_route_picks_the_tensor_cores_only_where_they_apply(dtype, head_dim, kv_len,
                                                             scale, ptrs, strides, want):
@@ -401,6 +452,7 @@ class _FakeLib:
 
 @pytest.mark.parametrize("dtype,D,want", [(torch.bfloat16, 128, "wgmma"),
                                           (torch.bfloat16, 64, "wgmma"),
+                                          (torch.bfloat16, 256, "wgmma"),
                                           (torch.bfloat16, 32, "fma"),
                                           (torch.float32, 128, "fma")])
 def test_wrapper_launches_the_routed_kernel_and_counts_it(monkeypatch, dtype, D, want):
@@ -441,6 +493,10 @@ CARD_SHAPES = FA_SHAPES + [(2, 32, 2, 129, 129, 128), (1, 4, 4, 1, 1, 64),
 #: at head dim 256 are its 64-key tiles' too) and its 64-key tiles below
 CARD_SHAPES += [sh for sh in FMA_EDGES + [(1, 4, 2, 63, 63, 128), (1, 4, 2, 65, 65, 64)]
                 if sh not in CARD_SHAPES]
+#: ... and the tensor-core kernel's 80-key tiles at head dim 256
+CARD_SHAPES += [sh for sh in WGMMA_D256_EDGES + [(2, 8, 1, 191, 191, 256),
+                                                 (1, 4, 2, 193, 193, 256)]
+                if sh not in CARD_SHAPES]
 
 
 @pytest.fixture
@@ -458,8 +514,8 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, dtype):
     tdt, tol = DTYPES[dtype]
     q, k, v = (torch.as_tensor(a).to(cuda_device, tdt)
                for a in qkv(shape, seed=sum(shape)))
-    # bf16 at head dim 64 / 128 takes the tensor-core kernel, the rest FMA
-    counter = ("launches_wgmma" if tdt == torch.bfloat16 and shape[-1] in (64, 128)
+    # bf16 at head dim 64 / 128 / 256 takes the tensor-core kernel, the rest FMA
+    counter = ("launches_wgmma" if tdt == torch.bfloat16 and shape[-1] in FA.WGMMA_HEAD_DIMS
                else "launches_fma")
     for causal, window in MASKS:
         before = FA.flash_attention.launches
@@ -473,7 +529,8 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 4, 2, 255, 255, 128), (2, 8, 2, 129, 129, 64)],
+@pytest.mark.parametrize("shape", [(1, 4, 2, 255, 255, 128), (2, 8, 2, 129, 129, 64),
+                                   (1, 4, 1, 129, 129, 256)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_bf16_one_element_off_alignment_takes_the_fma_kernel_on_card(cuda_device, shape):
     """bf16 tensors whose bases lie one element past a 16-byte boundary,
