@@ -127,7 +127,26 @@ Phases (any failure raises and the exit code is not 0):
      f32), or for the hybrid a one-slot engine equal to greedy decode;
      timings of the forward (with a ``torch.profiler`` split), the decode
      step and the engine, and the RG-LRU step loop alone;
- 17. the kernels line, the card, and the result line.
+ 17. main path after a sweep, on phase 3's suite and phase 12's survivors,
+     float64 on the card: ``frontier_codesign`` over budgets (0.25, 0.5,
+     0.75, 1.0, 1.5) x phase 12's area budget, 100 steps (J* non-increasing,
+     feasible rows within budget to 1e-9, NumPy re-score 1e-6, dJ*/db <= 0
+     where feasible and NaN elsewhere, ``SweepResult.frontier`` equal);
+     ``sensitivities_of`` phase 12's projected result against the host's;
+     the ``implicit_jstar_fn`` area-budget gradient against central
+     differences (1e-3) on the JAX package's pin; ``bilevel_codesign`` cut
+     to 2 outer and 10 inner steps, never worse than the uniform split;
+     ``pack_codesign`` 32 gen apps x 4 machines beating the uniform fleet,
+     budget and envelope met to 1e-9, assignment equal to the host's; the
+     frontier's designs re-scored through K3 / K1; then the co-design
+     service with no threads: two gen suites on one 100 003-variant
+     population in one K1 pass (each slice equal to its request alone), a
+     memo hit, a 200 003-variant mega-sweep in 4 shards through K4 (events
+     in order), a frontier and a tighter one from its cache (a warm hit),
+     constrained, joint, pack and bilevel requests, each equal to the
+     direct call; and the sweeps and frontier again through 2 worker
+     threads, equal;
+ 18. the kernels line, the card, and the result line.
 
 It needs one CUDA card, the CUDA toolkit's nvcc and the repository's
 ``src/`` tree; without them it exits with an error and prints no result.
@@ -2211,7 +2230,7 @@ def phase_codesign(torch, core, KC, dev, p3):
                         idle_share=proj["idle_share"])
         log(json.dumps(line))
     log(f"phase 12: {time.perf_counter() - t_phase:.1f} s in all")
-    return dict(counts=counts, rows=rows)
+    return dict(counts=counts, rows=rows, results=results, survivors=survivors)
 
 
 # --------------------------------------------------------------------------- #
@@ -2566,6 +2585,538 @@ def phase_family_serving(torch, FA, T, E, L, model, cfg, dev, spec):
 
 
 # --------------------------------------------------------------------------- #
+# Phase 17: the feasibility frontier, implicit sensitivities and the bilevel
+# split, fleet packing, and the co-design service
+# --------------------------------------------------------------------------- #
+
+#: The budgeted modes run on the survivors of a sweep of the model zoo's
+#: smoke profiles (the chatglm3 and falcon-mamba smoke models' train,
+#: prefill and decode steps, measured profiles of real models), whose best
+#: design has room to shrink under a budget: on gen:64 the best of phase
+#: 3's survivors descends to the corner of its span box (every rate a
+#: sixteenth of its seed's), where no area or power budget can bind.
+FR_SUITE, FR_N = "zoo-smoke", 100_000
+#: the frontier's area budgets, as points between the least area that the
+#: best of those survivors (its unconstrained descent's winner) can reach in
+#: its span box (0) and its optimum's area (1), so that the rows bind; the
+#: service's warm request asks for two tighter ones
+FR_SCHEDULE = (0.2, 0.4, 0.6, 0.8, 1.0)
+FR_TIGHT = (0.05, 0.1)
+FR_STEPS = 100
+#: the sensitivities are read at a projected descent from the survivors
+#: with the budget at this point of the same span (binding)
+SENS_AREA = 0.5
+#: the J* map's finite-difference hold: the JAX package's own pin
+#: (tests/test_implicit.py: the synthetic trio on the named seeds, area 0.18
+#: binding, power 0.30 slack) at its rtol; the initial step 30 (default 0.1)
+#: reaches the optimum in 8 solver steps instead of ~60, each step a
+#: retraction onto both budgets
+JSTAR_BUDGETS = (0.18, 0.30)
+JSTAR_STEPS, JSTAR_LR, JSTAR_RTOL = 8, 30.0, 1e-3
+#: the bilevel split, cut: outer steps and inner steps (its default
+#: Euclidean projection onto both budgets) from the J* hold's initial step
+#: 30 (default 0.1), so that the cut inner solve converges, as the implicit
+#: gradient needs; at the uniform split both budgets are half the total,
+#: which is put at this point between the least value and the optimum's of
+#: whichever of that survivor's area and power has the larger least value,
+#: so that it binds and the other can be met
+BL_OUTER_STEPS, BL_STEPS, BL_LR, BL_POINT = 2, 10, JSTAR_LR, 0.5
+#: fleet packing: generated apps, machines, the fleet-total area budget and
+#: one explicit beta for both fleets compared (tests/test_packing.py's)
+PACK_APPS, PACK_MACHINES, PACK_BUDGET, PACK_BETA = 32, 4, 2.0, 1.5
+#: the service's sweep population (+ the 3 named variants: 100 003) and its
+#: mega-sweep, cut from phase 4's 1 000 003 variants to keep the phase short
+SVC_N = 100_000
+MEGA_N, MEGA_SHARDS = 200_000, 4
+
+
+def _same_sweep(np, a, b, what):
+    """Two sweep results equal in every cell (NaN where NaN) and by name."""
+    check(a.apps == b.apps and a.machines.names == b.machines.names,
+          f"{what}: names differ")
+    fields = [("beta", a.beta, b.beta), ("gamma", a.gamma, b.gamma),
+              ("aggregate", a.aggregate, b.aggregate)]
+    fields += [(k, a.scores[k], b.scores[k]) for k in b.scores]
+    fields += [(k, a.alphas[k], b.alphas[k]) for k in b.alphas]
+    for name, x, y in fields:
+        check(np.array_equal(x, y, equal_nan=True),
+              f"{what}: {name} differs in "
+              f"{int((~((x == y) | (np.isnan(x) & np.isnan(y)))).sum())} cells")
+
+
+def _same_frontier(np, a, b, what):
+    from repro_torch.core.codesign import OPT_FIELDS
+
+    params = lambda r: np.array([[p[f] for f in OPT_FIELDS]
+                                 for p in r.best_params])
+    check(a.best_names == b.best_names and a.seed_names == b.seed_names,
+          f"{what}: names differ")
+    check(np.array_equal(a.budgets, b.budgets)
+          and np.array_equal(a.feasible, b.feasible)
+          and np.array_equal(a.objective, b.objective)
+          and np.array_equal(params(a), params(b)), f"{what}: values differ")
+
+
+def _rescore_k1(torch, core, KC, dev, pb, designs, beta, fit, what):
+    """Re-score ``designs`` through K1 with the descent's frozen ``beta``:
+    equal to plain float32 in every cell, within ``TOL`` of the float64
+    aggregate where Eq. 1 is conditioned, and each design's suite mean
+    within ``TOL`` of the descent's fit term."""
+    import numpy as np
+    from repro_torch.core import kernels_xp as KX
+
+    k1 = core.get_backend("cuda", dev).congruence(
+        pb.arrays(), designs.arrays(), beta, clamp=False)
+    p32 = core.TorchBackend(dev, torch.float32).congruence(
+        pb.arrays(), designs.arrays(), beta, clamp=False)
+    for f in ("gamma", "alpha_compute", "alpha_memory", "alpha_interconnect",
+              "lbcs", "hrcs", "ics", "aggregate"):
+        _exact(torch, torch.as_tensor(getattr(k1, f)),
+               torch.as_tensor(getattr(p32, f)), f"phase 17 ({what}): K1's {f}")
+    with np.errstate(divide="ignore", invalid="ignore"):
+        f64 = KX.congruence_kernel(np, pb.arrays(), designs.arrays(), beta,
+                                   "serial", core.IDEAL_EPS)
+    ok = conditioned(np, f64.gamma, beta, [f64.alpha_compute, f64.alpha_memory,
+                                           f64.alpha_interconnect])
+    diff = np.abs(k1.aggregate - f64.aggregate)
+    check(bool((diff[ok] <= TOL + TOL * np.abs(f64.aggregate[ok])).all()),
+          f"phase 17 ({what}): K1's aggregate is {float(diff[ok].max()):.3e} "
+          "off the float64 one")
+    cols = ok.all(axis=0)
+    mean_err = np.abs(k1.aggregate.mean(axis=0) - fit)[cols]
+    check(bool((mean_err <= TOL + TOL * np.abs(fit[cols])).all()),
+          f"phase 17 ({what}): K1's suite mean is {float(mean_err.max()):.3e} "
+          "off the descent's fit term")
+    return dict(cells=float(diff[ok].max()) if ok.any() else None,
+                ill_conditioned=int((~ok).sum()),
+                mean=float(mean_err.max()) if cols.any() else None)
+
+
+def _timed_jstar(torch, IM, evals, run):
+    """``run()`` with each evaluation of the J* maps that
+    ``implicit_jstar_fn`` builds meanwhile timed from its forward to the end
+    of its backward (when the budgets' gradient arrives), appending
+    ``{"seconds", "dJ_db"}`` to ``evals``."""
+    import numpy as np
+
+    build = IM.implicit_jstar_fn
+
+    def timed_build(*args, **kw):
+        jstar = build(*args, **kw)
+
+        def fn(budgets):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = jstar(budgets)
+
+            def done(grad):
+                torch.cuda.synchronize()
+                evals.append(dict(seconds=time.perf_counter() - t0,
+                                  dJ_db=np.asarray(grad.detach().cpu())))
+            if torch.is_tensor(budgets) and budgets.requires_grad:
+                budgets.register_hook(done)
+            return out
+        return fn
+
+    IM.implicit_jstar_fn = timed_build
+    try:
+        return run()
+    finally:
+        IM.implicit_jstar_fn = build
+
+
+def phase_frontier_service(torch, core, KC, dev, p3, p12):
+    import numpy as np
+    from repro_torch.core import codesign as CD
+    from repro_torch.core import constrained as CN
+    from repro_torch.core import implicit as IM
+    from repro_torch.launch.sweep import synthetic_profiles
+    from repro_torch.serving import codesign_service as SV
+
+    profiles = p3["profiles"]
+    pb = core.ProfileBatch.from_profiles(profiles)
+    survivors = p12["survivors"]
+    named = core.MachineBatch.from_models(core.VARIANTS)
+    beta = CD.resolve_beta(pb, survivors, None, 0)
+    cm, feas_tol = core.DEFAULT_COST_MODEL, 1.0 + CN.FEASIBLE_RTOL
+    rows = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        rows[label] = time.perf_counter() - t0
+        return out
+
+    KC.reset_launch_counts()
+    t_phase = time.perf_counter()
+
+    def corners(seeds):
+        _, lo, _ = CD.theta_box(seeds, 16.0)
+        m = CD.machine_arrays_from_theta(np, lo, seeds.arrays())
+        return np.asarray(cm.area(m)), np.asarray(cm.power(m))
+
+    paper = p12["results"]["constrained_projected"]
+    k_paper = int(np.argmin(paper.objective_final))
+    log(f"phase 17: gen:64's best survivor ({paper.names[k_paper]}, phase 12): "
+        f"area {float(paper.area_final[k_paper]):.6g}, the least its span box "
+        f"allows {float(corners(survivors)[0][k_paper]):.6g}")
+
+    # the sweep whose survivors the budgeted modes start from; their budgets
+    # lie below the best survivor's unconstrained optimum, so that they
+    # bind, and above the least area its span box allows, so that they can
+    # be met
+    z_prof = core.resolve_suite(FR_SUITE)
+    zoo = timed("zoo_sweep", lambda: core.run_sweep(
+        z_prof, n=FR_N, include_named=core.VARIANTS, device=dev))
+    check(zoo.backend == "cuda", f"the {FR_SUITE} sweep ran off the kernels")
+    z_surv = zoo.seed_codesign()
+    z_pb = core.ProfileBatch.from_profiles(z_prof)
+    z_beta = CD.resolve_beta(z_pb, z_surv, None, 0)
+    free = timed("grad_codesign", lambda: core.grad_codesign(
+        z_prof, z_surv, steps=FR_STEPS, device=dev))
+    k_free = int(np.argmin(free.objective_final))
+    a_free = float(free.area_final[k_free])
+    p_free = float(free.power_final[k_free])
+    a_corner, p_corner = corners(z_surv)
+    a_least, p_least = float(a_corner[k_free]), float(p_corner[k_free])
+    span = lambda f: a_least + f * (a_free - a_least)
+    log(f"phase 17: {FR_SUITE} ({len(z_prof)} apps) x {FR_N + len(core.VARIANTS)}"
+        f" variants: {len(z_surv)} survivors, {rows['zoo_sweep']:.2f} s; the "
+        f"best one's unconstrained optimum ({free.names[k_free]}, J "
+        f"{free.objective_final[k_free]:.8g}, {FR_STEPS} steps, "
+        f"{rows['grad_codesign']:.2f} s): area {a_free:.6g} (least "
+        f"{a_least:.6g}), power {p_free:.6g} (least {p_least:.6g})")
+    check(a_least < a_free, f"the best survivor's optimum has area {a_free:.6g},"
+          f" the least its box allows ({a_least:.6g}): no budget could bind")
+
+    # (a) the frontier from those survivors, through the sweep
+    # (``SweepResult.frontier``; the service's frontier request below is
+    # the direct ``frontier_codesign`` call it is held to)
+    schedule = [span(f) for f in FR_SCHEDULE]
+    fr = timed("frontier_codesign", lambda: zoo.frontier(
+        schedule, steps=FR_STEPS, device=dev))
+    feas = fr.feasible
+    check(fr.budgets.tolist() == sorted(schedule) and bool(feas.any()),
+          f"frontier: budgets {fr.budgets.tolist()}, feasible {feas.tolist()}")
+    check(bool((np.diff(fr.objective[feas]) <= 1e-12).all()),
+          f"frontier: J* rises with the budget: {fr.objective.tolist()}")
+    check(bool((fr.area[feas] <= fr.budgets[feas] * feas_tol).all()),
+          f"frontier: a feasible row over its budget: {fr.area.tolist()}")
+    designs = core.MachineBatch.from_models([fr.best_model(i)
+                                             for i in range(len(fr))])
+    rescored = CD.scalarized_objective(z_prof, designs, beta=z_beta)
+    fr_err = float(np.max(np.abs(rescored - fr.objective) / np.abs(rescored)))
+    check(fr_err <= CD_RTOL, f"frontier: the NumPy re-score is {fr_err:.3e} off")
+    dj = fr.dJ_dbudget
+    check(bool((dj[feas] <= 0.0).all() and np.isnan(dj[~feas]).all()),
+          f"frontier: dJ*/db {dj.tolist()} (<= 0 where feasible, NaN elsewhere)")
+    binding = feas & (np.nan_to_num(dj) < 0.0)
+    check(bool(binding.any()) and fr.objective[feas][0] > fr.objective[feas][-1],
+          f"frontier: no budget binds (dJ*/db {dj.tolist()}, J* "
+          f"{fr.objective.tolist()})")
+    fit = fr.objective - 0.1 * fr.area - 0.05 * fr.power
+    fr_k1 = _rescore_k1(torch, core, KC, dev, z_pb, designs, z_beta, fit,
+                        "frontier")
+    log(f"phase 17: SweepResult.frontier over {len(z_surv)} survivors, budgets "
+        f"{[round(b, 6) for b in fr.budgets.tolist()]} (points {list(FR_SCHEDULE)} "
+        f"from the least area to the optimum's): J* {[round(j, 6) for j in fr.objective.tolist()]}, "
+        f"feasible {feas.tolist()}, binding {binding.tolist()}, dJ*/db "
+        f"{[round(x, 6) for x in dj.tolist()]}, best {fr.best_names}, knee "
+        f"{fr.knee():g}; NumPy re-score within {fr_err:.2e}; K1 re-score {fr_k1}")
+    log(json.dumps({"end_to_end": "frontier_codesign", "A": len(z_prof),
+                    "V": len(z_surv), "budgets": len(schedule),
+                    "binding": int(binding.sum()), "steps": FR_STEPS,
+                    "refine_steps": fr.refine_steps,
+                    "seconds": rows["frontier_codesign"]}))
+
+    # K3 on the survivors' reference variant: the descents' beta
+    k3 = core.get_backend("cuda", dev).default_beta(
+        pb.arrays(), survivors.select(0).arrays())
+    p32 = core.TorchBackend(dev, torch.float32).default_beta(
+        pb.arrays(), survivors.select(0).arrays())
+    _exact(torch, torch.as_tensor(k3), torch.as_tensor(p32), "phase 17: K3's beta")
+    beta_err = float(np.max(np.abs(k3 - beta) / np.abs(beta)))
+    check(beta_err <= TOL, f"phase 17: K3's beta {beta_err:.3e} off the descents'")
+
+    # (b) implicit sensitivities at a projected descent whose area budget
+    # binds, on the card and on the host
+    sens_budget = span(SENS_AREA)
+    res_proj = timed("constrained_projected", lambda: core.constrained_codesign(
+        z_prof, z_surv, area_budget=sens_budget, steps=CD_STEPS, device=dev))
+    rep = timed("sensitivities_of", lambda: core.sensitivities_of(
+        res_proj, z_prof, device=dev))
+    rep_host = core.sensitivities_of(res_proj, z_prof, device="cpu")
+    check(bool((rep.multipliers >= 0).all()
+               and (rep.multipliers[~rep.active] == 0).all()
+               and np.array_equal(rep.dJ_dbudget, -rep.multipliers)),
+          "sensitivities: multipliers negative or priced on a slack constraint")
+    check(bool(rep.active.any()) and float(rep.multipliers.max()) > 0.0,
+          f"sensitivities: no constraint active or priced at area "
+          f"{sens_budget:.6g} ({int(rep.active.sum())} active)")
+    check(np.array_equal(rep.active, rep_host.active)
+          and np.array_equal(rep.free, rep_host.free),
+          "sensitivities: the card's active sets differ from the host's")
+    lam_err = float(np.max(np.abs(rep.multipliers - rep_host.multipliers)
+                           - 1e-6 * np.abs(rep_host.multipliers)))
+    check(lam_err <= 1e-12, f"sensitivities: multipliers {lam_err:.3e} off the host's")
+    log(f"phase 17: sensitivities_of a projected descent ({len(z_surv)} "
+        f"survivors, {CD_STEPS} steps, area budget {sens_budget:.6g}, point "
+        f"{SENS_AREA} from the least area to the optimum's): {int(rep.active.sum())} active "
+        f"of {rep.active.size}, {int((rep.multipliers > 0).sum())} priced, max "
+        f"price {float(rep.multipliers.max()):.6g}, stationarity residual <= "
+        f"{float(rep.residual.max()):.3e}; equal to the host's (active sets "
+        f"exactly, prices to 1e-6); descent {rows['constrained_projected']:.2f} "
+        f"s, report {rows['sensitivities_of']:.2f} s")
+
+    # (c) the J* map's budget gradient against central finite differences,
+    # on the JAX package's pin (a hold, not a timing: the bilevel run below
+    # times J* at this phase's size)
+    trio = synthetic_profiles()
+    jstar = IM.implicit_jstar_fn(trio, named, steps=JSTAR_STEPS, lr=JSTAR_LR,
+                                 device=dev)
+    b = torch.tensor(JSTAR_BUDGETS, dtype=torch.float64, device=dev,
+                     requires_grad=True)
+    (grad,) = torch.autograd.grad(jstar(b).sum(), b)
+    grad = grad.cpu().numpy()
+    area, power = JSTAR_BUDGETS
+    h = 1e-3 * area
+
+    def jsum(a):
+        with torch.no_grad():
+            return float(jstar([a, power]).sum())
+
+    fd = (jsum(area + h) - jsum(area - h)) / (2 * h)
+    fd_err = abs(fd - grad[0])
+    check(grad[0] < 0 and grad[1] == 0, f"J*: gradient {grad.tolist()} (the area "
+          "budget binds, the power budget is slack)")
+    check(fd_err <= 1e-8 + JSTAR_RTOL * max(abs(fd), abs(grad[0])),
+          f"J*: dJ*/d(area budget) {grad[0]:.8g} against central differences "
+          f"{fd:.8g}")
+    log(f"phase 17: implicit_jstar_fn (the FD hold: synthetic trio x {len(named)} "
+        f"named seeds, {JSTAR_STEPS} solver steps, lr {JSTAR_LR}): sum of "
+        f"dJ*/d(budgets) {grad.tolist()}, central differences {fd:.8g} on the "
+        f"area budget (rel err {fd_err / abs(fd):.2e})")
+
+    # (d) the bilevel split through the inner optimum, cut; each J*
+    # evaluation of its outer loop timed, forward and backward
+    least, best = max((a_least, a_free), (p_least, p_free))
+    check(least < best, f"bilevel: no budget can bind at the uniform split "
+          f"(least {least:.6g}, optimum {best:.6g})")
+    total = 2.0 * (least + BL_POINT * (best - least))
+    evals = []
+    bl = timed("bilevel_codesign", lambda: _timed_jstar(
+        torch, IM, evals, lambda: core.bilevel_codesign(
+            z_prof, z_surv, total_budget=total, outer_steps=BL_OUTER_STEPS,
+            steps=BL_STEPS, lr=BL_LR, device=dev)))
+    check(bl.objective_final <= bl.objective_uniform + 1e-12
+          and bool((np.diff(bl.objective_trajectory) <= 1e-12).all()),
+          f"bilevel: {bl.objective_trajectory.tolist()} against the uniform "
+          f"split's {bl.objective_uniform}")
+    check(abs(bl.area_budget + bl.power_budget - total) < 1e-12
+          and bool(bl.inner.feasible[bl.inner.best]), "bilevel: budgets")
+    check(len(evals) == BL_OUTER_STEPS + 1,
+          f"bilevel: {len(evals)} timed J* evaluations, not {BL_OUTER_STEPS + 1}")
+    check(bool((evals[0]["dJ_db"] < 0.0).any()),
+          f"bilevel: no budget binds at the uniform split (dJ*/db "
+          f"{evals[0]['dJ_db'].tolist()})")
+    check(bl.split_final != 0.5 and bl.objective_final < bl.objective_uniform,
+          f"bilevel: the split did not move ({bl.split_trajectory.tolist()})")
+    secs = [e["seconds"] for e in evals]
+    log(f"phase 17: bilevel_codesign (cut: outer_steps {BL_OUTER_STEPS}, inner "
+        f"steps {BL_STEPS} at lr {BL_LR}, Euclidean projection onto both budgets) over "
+        f"{len(z_surv)} survivors, total budget {total:.6g} (half of it at "
+        f"point {BL_POINT} from the least to the optimum's "
+        f"{'area' if least == a_least else 'power'}): split "
+        f"{bl.split_trajectory.tolist()}, J* {bl.objective_trajectory.tolist()} "
+        f"(uniform {bl.objective_uniform:.8g}); dJ*/d(area, power) at each "
+        f"evaluation {[e['dJ_db'].tolist() for e in evals]}; "
+        f"{rows['bilevel_codesign']:.1f} s, of which its {len(evals)} J* "
+        f"evaluations {[round(x, 2) for x in secs]} s")
+    log(json.dumps({"end_to_end": "bilevel_codesign", "A": len(z_prof),
+                    "V": len(z_surv), "outer_steps": BL_OUTER_STEPS,
+                    "steps": BL_STEPS, "lr": BL_LR,
+                    "seconds": rows["bilevel_codesign"],
+                    "jstar_evaluations": len(evals),
+                    "jstar_eval_seconds": secs}))
+
+    # (e) fleet packing against the uniform fleet
+    apps = core.resolve_suite(f"gen:{PACK_APPS}")
+    uni = core.constrained_codesign(
+        apps, named, steps=30, beta=PACK_BETA, device=dev,
+        area_budget=PACK_BUDGET / PACK_MACHINES, area_envelope=CD_ENVELOPE)
+    uniform = core.MachineBatch.from_models([uni.best_model()] * PACK_MACHINES)
+    pk = timed("pack_codesign", lambda: core.pack_codesign(
+        apps, named, num_machines=PACK_MACHINES, mode="alternate",
+        beta=PACK_BETA, area_budget=PACK_BUDGET, area_envelope=CD_ENVELOPE,
+        device=dev))
+    j_pack = core.fleet_objective(apps, pk.machines, beta=PACK_BETA)
+    j_uni = core.fleet_objective(apps, uniform, beta=PACK_BETA)
+    check(j_pack < j_uni, f"packing: fleet J {j_pack} does not beat the uniform "
+          f"fleet's {j_uni}")
+    check(abs(pk.objective_final - j_pack) <= 1e-9 * abs(j_pack),
+          "packing: the reported objective is not the fleet objective")
+    check(pk.feasible is True and pk.area_total <= PACK_BUDGET * feas_tol,
+          f"packing: fleet area {pk.area_total} over {PACK_BUDGET}")
+    for m in pk.machines.models():
+        for field, cap in CD_ENVELOPE.items():
+            check(cm.subsystem_area(m, field) <= cap * feas_tol,
+                  f"packing: {m.name} over its {field} envelope")
+    pk_host = core.pack_codesign(
+        apps, named, num_machines=PACK_MACHINES, mode="alternate",
+        beta=PACK_BETA, area_budget=PACK_BUDGET, area_envelope=CD_ENVELOPE,
+        device="cpu")
+    check(np.array_equal(pk.assignment, pk_host.assignment)
+          and abs(pk.objective_final - pk_host.objective_final)
+          <= CD_RTOL * abs(pk_host.objective_final),
+          "packing: the card's assignment or objective differs from the host's")
+    apb = core.ProfileBatch.from_profiles(apps)
+    pack_beta = np.full(len(apps), PACK_BETA)
+    k1_agg = core.get_backend("cuda", dev).congruence(
+        apb.arrays(), pk.machines.arrays(), pack_beta, clamp=False).aggregate
+    flips = int((np.argmin(k1_agg, axis=1) != pk.assignment).sum())
+    log(f"phase 17: pack_codesign {PACK_APPS} apps x {PACK_MACHINES} machines "
+        f"(alternate, fleet area {PACK_BUDGET}, envelope {CD_ENVELOPE}): fleet J "
+        f"{j_pack:.8g} against the uniform fleet's {j_uni:.8g}; apps a machine "
+        f"{np.bincount(pk.assignment, minlength=PACK_MACHINES).tolist()}; area "
+        f"{pk.area_total:.6f}; host twin equal; K1's float32 argmin moves "
+        f"{flips} of {PACK_APPS} apps (the assignment is float64); "
+        f"{rows['pack_codesign']:.2f} s")
+    log(json.dumps({"end_to_end": "pack_codesign", "A": PACK_APPS,
+                    "machines": PACK_MACHINES, "steps": pk.steps,
+                    "seconds": rows["pack_codesign"]}))
+
+    # (f) the co-design service, driven synchronously (workers=0)
+    svc = SV.CodesignService(workers=0, device=dev)
+    suites = [core.resolve_suite("gen:16"), core.resolve_suite("gen:48")[16:]]
+    spec = core.CodesignSpec(n=SVC_N, seed=0)
+    named_t = tuple(core.VARIANTS)
+
+    def sweep_req(suite):
+        return SV.CodesignRequest(kind="sweep", profiles=suite, spec=spec,
+                                  include_named=named_t)
+
+    before = KC.launch_counts()
+    jids = [svc.submit(sweep_req(s)) for s in suites]
+    timed("service_sweep_group", svc.drain)
+    after = KC.launch_counts()
+    check(svc.stats["batched_groups"] == 1 and svc.stats["batched_requests"] == 2
+          and after["congruence"] - before["congruence"] == 1,
+          f"service: the two sweeps did not ride one K1 pass: {dict(svc.stats)}, "
+          f"launches {before} -> {after}")
+    sweeps = [svc.result(j, timeout=0) for j in jids]
+    for i, (suite, got) in enumerate(zip(suites, sweeps)):
+        alone = core.run_sweep(suite, n=SVC_N, seed=0, include_named=core.VARIANTS,
+                               device=dev)
+        check(got.backend == "cuda" and alone.backend == "cuda",
+              "service: a sweep ran off the kernels")
+        _same_sweep(np, got, alone, f"service slice {i}")
+    again = svc.submit(sweep_req(suites[0]))
+    svc.drain()
+    check(svc.poll(again)["cache"] == "memo"
+          and svc.result(again, timeout=0) is sweeps[0], "service: no memo hit")
+
+    mega = svc.submit(SV.CodesignRequest(
+        kind="mega_sweep", profiles=suites[0], include_named=named_t,
+        spec=core.CodesignSpec(n=MEGA_N, seed=0), num_shards=MEGA_SHARDS,
+        stream=True))
+    timed("service_mega_sweep", svc.drain)
+    events = [e for e in svc.stream(mega) if e["event"] == "shard"]
+    check([e["shard"] for e in events] == list(range(MEGA_SHARDS))
+          and events[-1]["hi"] == MEGA_N + len(core.VARIANTS),
+          f"service: mega-sweep shard events {events}")
+    sh = svc.result(mega, timeout=0)
+    sh_direct = core.shard_sweep(suites[0], n=MEGA_N, include_named=core.VARIANTS,
+                                 num_shards=MEGA_SHARDS, stream=True, device=dev)
+    check(sh.pareto_names() == sh_direct.pareto_names()
+          and sh.best_fit_map == sh_direct.best_fit_map,
+          "service: the mega-sweep differs from shard_sweep")
+
+    fspec = core.CodesignSpec(budgets=schedule, steps=FR_STEPS)
+    freq = lambda s, **kw: SV.CodesignRequest(kind="frontier", profiles=z_prof,
+                                              machines=z_surv, spec=s, **kw)
+    jf = svc.submit(freq(fspec))
+    timed("service_frontier_cold", svc.drain)
+    cold = svc.result(jf, timeout=0)
+    _same_frontier(np, fr, cold,
+                   "SweepResult.frontier against the service's frontier_codesign")
+    tight = core.CodesignSpec(budgets=[span(f) for f in FR_TIGHT],
+                              steps=FR_STEPS)
+    jw = svc.submit(freq(tight))
+    timed("service_frontier_warm", svc.drain)
+    check(svc.poll(jw)["cache"] == "warm" and svc.stats["frontier_warm_hits"] == 1,
+          "service: the tighter frontier was not a warm hit")
+    loosest = max(tight.budgets)
+    ge = [b for b in sorted(cold.continuation) if b >= loosest]
+    pick = min(ge) if ge else max(cold.continuation)
+    warm_direct = core.frontier_codesign(
+        z_prof, z_surv, spec=tight, warm_theta=cold.continuation[pick],
+        warm_lr=cold.final_lr, keep_state=True, device=dev)
+    _same_frontier(np, svc.result(jw, timeout=0), warm_direct,
+                   "service warm frontier")
+
+    kinds = {
+        "constrained": (profiles, survivors,
+                        core.CodesignSpec(area_budget=CD_AREA, steps=20),
+                        core.constrained_codesign),
+        "joint": (sharding_groups(core, profiles), survivors,
+                  core.CodesignSpec(mode="alternate", steps=16),
+                  core.joint_codesign),
+        "pack": (apps, named,
+                 core.CodesignSpec(num_machines=PACK_MACHINES, mode="alternate",
+                                   beta=PACK_BETA, area_budget=PACK_BUDGET,
+                                   area_envelope=CD_ENVELOPE), None),
+        "bilevel": (profiles, survivors,
+                    core.CodesignSpec(total_budget=total, outer_steps=1,
+                                      steps=2, projection="shift"),
+                    core.bilevel_codesign),
+    }
+    for kind, (inputs, seeds, kspec, entry) in kinds.items():
+        jk = svc.submit(SV.CodesignRequest(kind=kind, profiles=inputs,
+                                           machines=seeds, spec=kspec))
+        timed(f"service_{kind}", svc.drain)
+        got = svc.result(jk, timeout=0)
+        want = pk if entry is None else entry(inputs, seeds, spec=kspec,
+                                             device=dev)
+        check(json.dumps(got.to_json(), sort_keys=True, default=str)
+              == json.dumps(want.to_json(), sort_keys=True, default=str),
+              f"service: the {kind} request differs from the direct call")
+    counts = KC.launch_counts()
+
+    # (g) the same sweep and frontier requests through two worker threads
+    threaded = SV.CodesignService(workers=2, device=dev)
+    try:
+        t0 = time.perf_counter()
+        tj = [threaded.submit(sweep_req(s)) for s in suites]
+        tf = threaded.submit(freq(fspec))
+        t_sweeps = [threaded.result(j, timeout=600) for j in tj]
+        t_front = threaded.result(tf, timeout=600)
+        torch.cuda.synchronize()
+        rows["service_threaded"] = time.perf_counter() - t0
+    finally:
+        threaded.shutdown()
+    for i, (a, b2) in enumerate(zip(t_sweeps, sweeps)):
+        _same_sweep(np, a, b2, f"workers=2 sweep {i}")
+    _same_frontier(np, t_front, cold, "workers=2 frontier")
+
+    for name in ("congruence", "default_beta", "sweep_stats"):
+        check(counts[name] > 0, f"phase 17 never launched {name}: {counts}")
+    log(f"phase 17: the service (workers=0): two gen suites ({len(suites[0])} + "
+        f"{len(suites[1])} apps) on one {SVC_N + len(core.VARIANTS)}-variant "
+        f"population in one K1 pass, each slice equal to its request alone; "
+        f"a repeat a memo hit; a {MEGA_N + len(core.VARIANTS)}-variant "
+        f"mega-sweep (cut from phase 4's 1000003) in {MEGA_SHARDS} shards, events "
+        f"in order, equal to shard_sweep; the frontier cold (equal to "
+        f"SweepResult.frontier) then warm (equal to the direct call); constrained, joint, pack and bilevel equal to the "
+        f"direct calls; workers=2 equal to workers=0; stats {dict(svc.stats)}")
+    log(json.dumps({"service_seconds": {k: v for k, v in rows.items()
+                                        if k.startswith("service")}}))
+    log(f"phase 17: launches {counts}; {time.perf_counter() - t_phase:.1f} s in all")
+    return dict(counts=counts, rows=rows)
+
+
+# --------------------------------------------------------------------------- #
 
 
 def main() -> int:
@@ -2584,6 +3135,7 @@ def main() -> int:
     from repro_torch.core import _build
     from repro_torch.core import kernels_cuda as KC
 
+    t_script = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
@@ -2697,12 +3249,14 @@ def main() -> int:
             fa_launches[kernel] += count
     torch.cuda.empty_cache()
 
+    p17 = phase_frontier_service(torch, core, KC, dev, p3, p12)
+
     kernels = []
     for name in REPLACES:
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
             launches=(p3["counts"][name] + p4["counts"][name]
-                      + p12["counts"][name]),
+                      + p12["counts"][name] + p17["counts"][name]),
             max_abs_err=errs[name], ms=rows[name]["ms"],
             plain_ms=rows[name]["plain_ms"], bound_ms=rows[name]["bound_ms"],
             bound_by=rows[name]["bound_by"], library_ms=None))
@@ -2726,6 +3280,8 @@ def main() -> int:
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
         check(kernels[-1]["launches"] > 0, f"{name} never launched")
+    log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s in all, the build "
+        "included")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,21 @@ Public API of this slice (the sweep path):
                                               budgets + per-subsystem
                                               area envelopes)
   constrained.joint_codesign               -- joint machine+sharding descent
+  frontier.frontier_codesign               -- J*(budget) feasibility frontier
+                                              by warm-started continuation
+  implicit.implicit_sensitivities          -- KKT shadow prices and
+                                              dJ*/d(budget) at an optimum
+                                              (plus sensitivities_of for
+                                              CodesignResults)
+  implicit.bilevel_codesign                -- outer budget-split descent
+                                              through the inner optimum
+                                              (implicit autograd Function)
+  packing.pack_codesign                    -- multi-tenant packing: A apps
+                                              across M machine instances
+                                              under fleet budgets
   spec.CodesignSpec                        -- one validated request object
                                               for the co-design entry points
+                                              and the serving front door
 
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; without a CUDA device they raise.
@@ -34,6 +47,17 @@ from repro_torch.core.constrained import (
     project_to_budgets,
     validate_area_envelope,
 )
+from repro_torch.core.frontier import FrontierResult, frontier_codesign
+from repro_torch.core.implicit import (
+    BilevelResult,
+    SensitivityReport,
+    bilevel_codesign,
+    implicit_jstar_fn,
+    implicit_sensitivities,
+    sensitivities_of,
+    unrolled_jstar_fn,
+)
+from repro_torch.core.packing import PackingResult, fleet_objective, pack_codesign
 from repro_torch.core.congruence import (
     CongruenceReport,
     SCORE_NAMES,

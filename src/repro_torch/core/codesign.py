@@ -271,8 +271,8 @@ class CodesignResult:
     #: Augmented-Lagrangian shadow-price estimates: ``(V, C)``
     #: multipliers against the ABSOLUTE budgets, one column per
     #: ``constraint_names`` entry (cross-checkable against the implicit
-    #: sensitivities of the JAX package's ``implicit`` module, not yet
-    #: ported).  Lagrangian mode only.
+    #: sensitivities of ``repro_torch.core.implicit``).  Lagrangian mode
+    #: only.
     multipliers: Optional[np.ndarray] = None
     constraint_names: Optional[Tuple[str, ...]] = None
 

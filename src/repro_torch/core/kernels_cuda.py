@@ -27,6 +27,7 @@ through a wrapper shaped like ``default_beta``'s) is timed beside K3.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict
 
 import numpy as np
@@ -168,7 +169,7 @@ def congruence(p_stack: torch.Tensor, m_stack: torch.Tensor,
         _launch(_fn("repro_congruence"), p_stack.data_ptr(), a,
                 m_stack.data_ptr(), v, out.data_ptr(), overlap, float(eps),
                 int(bool(clamp)), _stream(p_stack))
-        congruence.launches += 1
+        _count(congruence)
     return out
 
 
@@ -185,7 +186,7 @@ def step_time(p_stack: torch.Tensor, m_stack: torch.Tensor,
         _launch(_fn("repro_step_time"), p_stack.data_ptr(), a,
                 m_stack.data_ptr(), v, out.data_ptr(), overlap,
                 _stream(p_stack))
-        step_time.launches += 1
+        _count(step_time)
     return out
 
 
@@ -203,7 +204,7 @@ def default_beta(p_stack: torch.Tensor, m_ref: torch.Tensor) -> torch.Tensor:
     if a:
         _launch(_fn("repro_default_beta"), p_stack.data_ptr(), a,
                 m_ref.data_ptr(), out.data_ptr(), _stream(p_stack))
-        default_beta.launches += 1
+        _count(default_beta)
     return out
 
 
@@ -246,8 +247,17 @@ def sweep_stats(p_stack: torch.Tensor, m_stack: torch.Tensor,
             v, overlap, float(eps), int(bool(clamp)), base,
             base + 4 * (v + a), base + 4 * (v + a + n_part), base + 4 * v,
             app_idx.data_ptr(), _stream(p_stack))
-    sweep_stats.launches += 1
+    _count(sweep_stats)
     return buf[:v], buf[v:v + a], app_idx
+
+
+#: Service workers launch from threads: the counts are bumped under a lock.
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper) -> None:
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 WRAPPERS = (congruence, step_time, default_beta, sweep_stats)

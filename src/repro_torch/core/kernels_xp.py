@@ -24,6 +24,7 @@ and ``MachineArrays`` (shape ``(V,)`` per field) namedtuples; every
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
@@ -346,13 +347,16 @@ _BACKEND_FACTORIES: Dict[str, Callable[..., Backend]] = {
     "torch": TorchBackend,
 }
 _BACKEND_CACHE: Dict[Tuple[str, str], Backend] = {}
+#: The co-design service resolves backends from worker threads.
+_BACKEND_LOCK = threading.RLock()
 
 
 def register_backend(name: str, factory: Callable[..., Backend]) -> None:
     """Register a backend factory, called as ``factory(device)``."""
-    _BACKEND_FACTORIES[name] = factory
-    for key in [k for k in _BACKEND_CACHE if k[0] == name]:
-        del _BACKEND_CACHE[key]
+    with _BACKEND_LOCK:
+        _BACKEND_FACTORIES[name] = factory
+        for key in [k for k in _BACKEND_CACHE if k[0] == name]:
+            del _BACKEND_CACHE[key]
 
 
 def available_backends() -> Tuple[str, ...]:
@@ -394,6 +398,7 @@ def get_backend(name=None, device=DEFAULT_DEVICE) -> Backend:
         raise ValueError(
             f"unknown backend {name!r}; have {available_backends()}")
     key = (name, str(dev))
-    if key not in _BACKEND_CACHE:
-        _BACKEND_CACHE[key] = _BACKEND_FACTORIES[name](dev)
-    return _BACKEND_CACHE[key]
+    with _BACKEND_LOCK:
+        if key not in _BACKEND_CACHE:
+            _BACKEND_CACHE[key] = _BACKEND_FACTORIES[name](dev)
+        return _BACKEND_CACHE[key]

@@ -6,8 +6,7 @@ keyword surfaces that drifted apart; a serving front door cannot forward
 five different signatures.  ``CodesignSpec`` is the unified request: one
 frozen dataclass carrying budgets, envelopes, the frontier schedule,
 descent knobs and the kernel backend, accepted by the co-design entry
-points via ``spec=``.  The port of the JAX package's spec module; of its
-consumers, ``constrained_codesign`` and ``joint_codesign`` are ported.
+points via ``spec=``.  The port of the JAX package's spec module.
 
 Resolution order is fixed and explicit everywhere: an explicitly-passed
 keyword wins, then the spec's field, then the entry point's historical
@@ -36,7 +35,7 @@ ValueError: unknown projection 'bogus'; have ('shift', 'euclidean')
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 from repro_torch.core.costmodel import CostModel
 from repro_torch.core.kernels_xp import validate_backend_name
@@ -109,6 +108,7 @@ class CodesignSpec:
         so validating here IS validating everywhere.
         """
         from repro_torch.core.constrained import validate_area_envelope
+        from repro_torch.core.frontier import _validate_budget_schedule
         from repro_torch.core.suites import validate_suite_name
 
         validate_suite_name(self.suite)
@@ -201,25 +201,6 @@ class CodesignSpec:
             (f.name, _normalize(getattr(s, f.name)))
             for f in dataclasses.fields(s))
         return norm(self) == norm(other)
-
-
-def _validate_budget_schedule(budgets) -> List[float]:
-    """Ascending, deduplicated, all-positive budget schedule as floats.
-
-    The frontier's own validator; it moves to the port's ``frontier.py``
-    when the feasibility frontier is ported (ROADMAP.md Queue 1 item 4)."""
-    try:
-        out = sorted({float(b) for b in budgets})
-    except TypeError as exc:
-        raise ValueError(
-            f"budgets must be an iterable of numbers, got {budgets!r}"
-        ) from exc
-    if not out:
-        raise ValueError("frontier_codesign needs at least one budget")
-    for b in out:
-        if not b > 0.0:
-            raise ValueError(f"budgets must be positive, got {b!r}")
-    return out
 
 
 def _normalize(value):

@@ -742,6 +742,22 @@ class SweepResult:
             order = order[:k]
         return self.machines.take(order)
 
+    def frontier(self, budgets, k: Optional[int] = None,
+                 cost_model: CostModel = DEFAULT_COST_MODEL, **kwargs):
+        """Trace the feasibility frontier J*(budget) from this sweep.
+
+        The sweep's Pareto survivors (``seed_codesign``) warm-start
+        ``repro_torch.core.frontier.frontier_codesign`` over the same
+        profile suite -- global exploration hands its winners to the
+        budget continuation.  ``kwargs`` forward to ``frontier_codesign``
+        (``power_budget=``, ``area_envelope=``, ``steps=``, ``device=``,
+        ...).
+        """
+        from repro_torch.core.frontier import frontier_codesign
+        return frontier_codesign(
+            self.profiles, self.seed_codesign(k=k, cost_model=cost_model),
+            budgets, cost_model=cost_model, **kwargs)
+
     # ----------------------------- reports ---------------------------- #
 
     def markdown(self, top_k: Optional[int] = None,
@@ -1315,6 +1331,13 @@ class ShardedSweepResult:
         seed co-design exactly like a single-pass sweep's would.
         """
         return self.result.seed_codesign(k=k, cost_model=self.cost_model)
+
+    def frontier(self, budgets, k: Optional[int] = None, **kwargs):
+        """J*(budget) frontier from the mega-sweep's survivors, traced
+        under the cost model the shards were pre-filtered with (see
+        ``SweepResult.frontier``)."""
+        return self.result.frontier(budgets, k=k,
+                                    cost_model=self.cost_model, **kwargs)
 
     # ----------------------------- reports ---------------------------- #
 

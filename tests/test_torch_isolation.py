@@ -35,7 +35,10 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "repro_torch.kernels.rmsnorm, repro_torch.kernels.selective_scan, "
             "repro_torch.carry, repro_torch.configs, "
             "repro_torch.core.codesign, repro_torch.core.constrained, "
-            "repro_torch.core.spec\n"
+            "repro_torch.core.spec, repro_torch.core.frontier, "
+            "repro_torch.core.implicit, repro_torch.core.packing, "
+            "repro_torch.serving.codesign_service, "
+            "repro_torch.launch.serve_codesign\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'benchmarks')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -63,7 +66,9 @@ def test_no_import_of_jax_or_the_jax_package(path):
     "repro_torch.core.sweep", "repro_torch.core.costmodel",
     "repro_torch.core.genload", "repro_torch.core.dse",
     "repro_torch.core.codesign", "repro_torch.core.constrained",
-    "repro_torch.core.spec"])
+    "repro_torch.core.spec", "repro_torch.core.frontier",
+    "repro_torch.core.implicit", "repro_torch.core.packing",
+    "repro_torch.serving.codesign_service"])
 def test_docstring_examples_run(module):
     result = doctest.testmod(importlib.import_module(module))
     assert result.attempted > 0 and result.failed == 0
