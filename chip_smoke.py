@@ -146,7 +146,34 @@ Phases (any failure raises and the exit code is not 0):
      constrained, joint, pack and bilevel requests, each equal to the
      direct call; and the sweeps and frontier again through 2 worker
      threads, equal;
- 18. the kernels line, the card, and the result line.
+ 18. the measurement loop: (a) the six zoo-smoke cells extracted on the
+     card (``core.model_zoo.extract_profile``: the step under the op
+     counter), their model_flops, tokens, params, params_active and
+     num_devices equal to the JAX-made goldens and their dot_flops, flops,
+     transcendentals, bytes_accessed and hbm_bytes equal to the same cells
+     counted on ``meta``, with each field's ratio to the JAX golden and to
+     the port's golden printed, and qwen2-moe's smoke MoE (train and
+     prefill) on the card equal to ``meta``, whose experts split evenly; (b) chatglm3-6b's 12 full-grid zoo cells at
+     published width and depth on ``meta`` (model_flops equal to
+     ``model_flops_for``), timed; (c) its ``zoo_decode_s4096_b32`` cell run
+     on the card with phase 7's weights (before they are freed), its counts
+     equal to (b)'s, the allocator's peak beside the tracker's; (d)
+     ``calibration_report`` of (a)'s profiles, K2 against the float64
+     roofline, every ratio within 5e-4 of 1; (e) ``run_sweep`` of (a)'s
+     suite x 100 003 variants through K3 -> K1, best fits and the 2-D front
+     equal to plain float32, printed beside the JAX-made suite's;
+ 19. training: whisper-medium at published width and depth (attn_impl
+     "xla"), ``Trainer`` for 4 steps of 4 x 448 decoder tokens over 1500
+     frames from ``SyntheticLM``, checkpointed (``AsyncCheckpointer``) at
+     step 2 and 4: finite losses, the learning rate equal to a float64
+     schedule (1e-5), one more AdamW update equal to a NumPy float64 twin
+     (global norm, lr, and sampled parameter / m / v slices, 1e-5); a run
+     killed after step 2 and resumed from its checkpoint ends with the
+     uninterrupted run's state bit for bit; a smoke checkpoint written on
+     the CPU loads on the card bit for bit and trains on there; the train
+     cell's profile on the card equal to its ``meta`` count; the step's
+     time and tokens/s;
+ 20. the kernels line, the card, and the result line.
 
 It needs one CUDA card, the CUDA toolkit's nvcc and the repository's
 ``src/`` tree; without them it exits with an error and prints no result.
@@ -3119,6 +3146,374 @@ def phase_frontier_service(torch, core, KC, dev, p3, p12):
 # --------------------------------------------------------------------------- #
 
 
+# --------------------------------------------------------------------------- #
+# Phases 18-19: the measurement loop and training
+# --------------------------------------------------------------------------- #
+
+#: phase 18's full-grid architecture and the cell (c) runs on the card
+#: with phase 7's weights
+ZOO_ARCH = "chatglm3-6b"
+ZOO_CARD_CELL = "zoo_decode_s4096_b32"
+#: the profile fields that are not counts (identity of the cell)
+ZOO_IDENTITY = ("model_flops", "tokens", "params", "params_active", "num_devices")
+#: the counts a card run must equal its meta run's in
+ZOO_COUNTS = ("dot_flops", "dot_count", "flops", "transcendentals",
+              "bytes_accessed", "hbm_bytes")
+ZOO_RATIOS = ("dot_flops", "flops", "bytes_accessed", "hbm_bytes",
+              "peak_memory_bytes")
+#: phase 18 (a)'s MoE hold: qwen2-moe-a2.7b's smoke config (8 experts,
+#: top 4), whose experts' rows split by the routing on the card and
+#: evenly on meta
+ZOO_MOE_ARCH = "qwen2-moe-a2.7b"
+ZOO_MOE_SHAPES = (("moe_train_s128_b4", 128, 4, "train"),
+                  ("moe_prefill_s128_b4", 128, 4, "prefill"))
+#: phase 18 (e)'s sweep
+ZOO_SWEEP_N = 100_000
+#: phase 19: whisper-medium at published width and depth, phase 15's shape
+TRAIN_ARCH = "whisper-medium"
+TRAIN_B = 4
+TRAIN_S = 448
+TRAIN_STEPS = 4
+TRAIN_SAVE = 2
+TRAIN_RTOL = 1e-5
+#: parameters whose first slices phase 19's AdamW twin holds
+TRAIN_SLICES = 8
+TRAIN_SLICE_LEN = 4096
+
+
+def _same_counts(a, b, fields=ZOO_COUNTS):
+    return [f for f in fields if getattr(a, f) != getattr(b, f)]
+
+
+def phase_zoo_card_cell(torch, model, dev):
+    """Phase 18 (c): chatglm3-6b's ``ZOO_CARD_CELL`` on the card with phase
+    7's weights (before they are freed); held against (b)'s meta count."""
+    from repro_torch.core import model_zoo as PZ
+
+    cell = next(c for c in PZ.zoo_cells(archs=(ZOO_ARCH,))
+                if c.shape.name == ZOO_CARD_CELL)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof = PZ.extract_profile(cell, device=dev, model=model)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"phase 18 (c): {cell.name} on the card with phase 7's weights in "
+        f"{secs:.2f} s: dot_flops {prof.dot_flops:.6e}, hbm_bytes "
+        f"{prof.hbm_bytes:.6e}, allocator peak {prof.peak_memory_bytes / 1e9:.3f} "
+        f"GB (the weights {prof.argument_bytes / 1e9:.3f} GB of it)")
+    torch.cuda.empty_cache()
+    return dict(cell=cell, profile=prof, seconds=secs)
+
+
+def phase_measurement(torch, core, KC, dev, p18c):
+    """Phase 18 (a), (b), (d), (e); (c) ran beside phase 7's model."""
+    import numpy as np
+
+    from repro_torch.core import model_zoo as PZ
+    from repro_torch.core import roofline as R
+
+    t_phase = time.perf_counter()
+    # (a) the six smoke cells on the card and on meta
+    cells = PZ.zoo_cells(smoke=True)
+    jax_gold = core.resolve_suite("zoo-smoke")
+    port_gold = PZ.profiles_from_configs(smoke=True, extract_missing=False)
+    card, rows = [], []
+    for cell, jg, pg in zip(cells, jax_gold, port_gold):
+        check(jg.meta.get("fingerprint") == PZ.cell_fingerprint(cell),
+              f"phase 18: {cell.name}'s JAX-made golden has another fingerprint")
+        t0 = time.perf_counter()
+        pc = PZ.extract_profile(cell, device=dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pm = PZ.extract_profile(cell, device="meta")
+        meta_s = time.perf_counter() - t0
+        card.append(pc)
+        bad = [f for f in ZOO_IDENTITY if getattr(pc, f) != getattr(jg, f)]
+        check(not bad, f"phase 18 (a): {cell.name}: {bad} differ from the JAX goldens")
+        bad = _same_counts(pc, pm)
+        check(not bad, f"phase 18 (a): {cell.name}: {bad} on the card differ from meta")
+        ratios = {f: (getattr(pc, f) / getattr(jg, f), getattr(pc, f) / getattr(pg, f))
+                  for f in ZOO_RATIOS}
+        rows.append(dict(cell=cell.name, card_s=card_s, meta_s=meta_s, ratios=ratios))
+        log(f"phase 18 (a): {cell.name}: card {card_s:.3f} s, meta {meta_s:.3f} s; "
+            "card / JAX golden, card / port golden: " + ", ".join(
+                f"{f} {a:.6f} / {b:.6f}" for f, (a, b) in ratios.items()))
+
+    # (a) the MoE: its experts' split on the card against meta's even one
+    from repro_torch import configs as C
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.extract import run_cell
+
+    moe = C.get_config(ZOO_MOE_ARCH, smoke=True)
+    for name, seq, batch, kind in ZOO_MOE_SHAPES:
+        shape = ShapeSpec(name, seq, batch, kind)
+        pc = run_cell(moe, shape, device=dev)
+        pm = run_cell(moe, shape, device="meta")
+        bad = _same_counts(pc, pm)
+        check(not bad, f"phase 18 (a): the MoE's {name}: {bad} on the card differ from meta")
+        log(f"phase 18 (a): {moe.name} {name} (gmm, {moe.moe.n_experts} experts, top "
+            f"{moe.moe.top_k}): the card's counts equal meta's (dot_flops "
+            f"{pc.dot_flops:.6e}, {pc.dot_count} matmuls, hbm_bytes {pc.hbm_bytes:.6e})")
+
+    # (b) chatglm3-6b's full grid on meta
+    full = {}
+    for cell in PZ.zoo_cells(archs=(ZOO_ARCH,)):
+        t0 = time.perf_counter()
+        p = PZ.extract_profile(cell, device="meta")
+        secs = time.perf_counter() - t0
+        full[cell.shape.name] = p
+        want = R.model_flops_for(params_active=p.params_active, tokens=p.tokens,
+                                 step_kind="train" if p.step_kind == "train" else "infer")
+        check(p.model_flops == want, f"phase 18 (b): {cell.name} model_flops")
+        log(f"phase 18 (b): {cell.name} on meta in {secs:.2f} s: dot_flops "
+            f"{p.dot_flops:.6e}, hbm_bytes {p.hbm_bytes:.6e}, tracker peak "
+            f"{p.peak_memory_bytes / 1e9:.3f} GB, {p.meta['aten_ops']} ATen operations")
+    check(len(full) == 12, f"phase 18 (b): {len(full)} cells, not 12")
+
+    # (c)'s hold, against (b)
+    pc, pm = p18c["profile"], full[ZOO_CARD_CELL]
+    bad = _same_counts(pc, pm)
+    check(not bad, f"phase 18 (c): {bad} on the card differ from meta")
+    log(f"phase 18 (c): the card's counts equal meta's; allocator peak "
+        f"{pc.peak_memory_bytes / 1e9:.3f} GB against the tracker's "
+        f"{pm.peak_memory_bytes / 1e9:.3f} GB")
+
+    # (d) calibration of (a)'s profiles: K2 against the float64 roofline
+    KC.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = PZ.calibration_report(card, device=dev)
+    cal_s = time.perf_counter() - t0
+    check(rep.backend == "cuda", f"phase 18 (d): backend {rep.backend}")
+    worst = max(abs(c.ratio - 1.0) for c in rep.cells)
+    check(worst <= TOL, f"phase 18 (d): a calibration ratio is {worst:.3e} off 1")
+    log(f"phase 18 (d): calibration of the card's profiles on {rep.backend} in "
+        f"{cal_s:.3f} s: ratios within {worst:.3e} of 1, dominant-term agreement "
+        f"{100.0 * rep.dominant_agreement:.1f}% ("
+        + ", ".join(f"{c.dominant_eq1}/{c.dominant_roofline}" for c in rep.cells) + ")")
+
+    # (e) the extracted suite swept through K3 -> K1
+    t0 = time.perf_counter()
+    res = core.run_sweep(card, n=ZOO_SWEEP_N, include_named=core.VARIANTS, device=dev)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    counts = KC.launch_counts()
+    check(counts["congruence"] > 0 and counts["default_beta"] > 0
+          and counts["step_time"] > 0, f"phase 18 missed a kernel: {counts}")
+    plain32 = core.run_sweep(card, n=ZOO_SWEEP_N, include_named=core.VARIANTS,
+                             backend=core.TorchBackend(dev, torch.float32))
+    check(bool(np.isfinite(res.aggregate).all()), "phase 18 (e): non-finite aggregate")
+    check(best_fits_agree(res, plain32), "phase 18 (e): best fits differ from plain f32")
+    names_k, area, agg = _front_maps(res)
+    names_p, _, agg_p = _front_maps(plain32)
+    check(fronts_agree(names_k, names_p, area, agg_p),
+          f"phase 18 (e): 2-D fronts differ: {names_k} vs {names_p}")
+    jres = core.run_sweep(jax_gold, n=ZOO_SWEEP_N, include_named=core.VARIANTS,
+                          device=dev)
+    best = [res.machines.names[i] for i in res.best_fit_indices()]
+    jbest = [jres.machines.names[i] for i in jres.best_fit_indices()]
+    jfront = [jres.machines.names[i] for i in jres.pareto_front()]
+    log(f"phase 18 (e): run_sweep of the card's profiles x {len(res.machines)} in "
+        f"{sweep_s:.3f} s; best fits and 2-D front equal plain f32. Best fits "
+        f"(port suite / JAX-made suite): "
+        + ", ".join(f"{a} / {b}" for a, b in zip(best, jbest))
+        + f"; 2-D front {len(names_k)} variants {names_k[:6]}... / {len(jfront)} "
+        f"variants {jfront[:6]}...; launches {counts}")
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 18: {seconds:.1f} s")
+    return dict(counts=counts, rows=rows, full=full, seconds=seconds)
+
+
+def _schedule64(step, oc):
+    """The learning rate at ``step`` in float64 (``adamw.schedule``)."""
+    warm = min(step / max(oc.warmup_steps, 1), 1.0)
+    t = min(max((step - oc.warmup_steps) / max(oc.total_steps - oc.warmup_steps, 1),
+                0.0), 1.0)
+    decay = oc.min_lr_ratio + (1.0 - oc.min_lr_ratio) * 0.5 * (1.0 + math.cos(math.pi * t))
+    return oc.peak_lr * warm * decay
+
+
+def _adamw_twin(torch, A, S, state, cfg, batch, oc):
+    """One AdamW update on the card against a NumPy float64 twin: the global
+    norm of all the gradients, the learning rate, and the first
+    ``TRAIN_SLICE_LEN`` elements of ``TRAIN_SLICES`` parameters (and their
+    m, v)."""
+    import numpy as np
+
+    model = state["params"]
+    params = A.params_of(model)
+    _, _, grads = S.loss_and_grads(model, cfg, batch)
+    names = sorted(params)[::max(len(params) // TRAIN_SLICES, 1)][:TRAIN_SLICES]
+    host = lambda t: t.detach().reshape(-1)[:TRAIN_SLICE_LEN].double().cpu().numpy()
+    before = {n: (host(params[n]), host(state["opt"]["m"][n]), host(state["opt"]["v"][n]),
+                  host(grads[n])) for n in names}
+    gnorm64 = math.sqrt(sum(float((g.detach().double() ** 2).sum().cpu())
+                            for g in grads.values()))
+    step = int(state["opt"]["step"]) + 1
+    _, _, stats = A.update(grads, state["opt"], params, oc)
+    torch.cuda.synchronize()
+    lr64 = _schedule64(step, oc)
+    errs = {"grad_norm": abs(float(stats["grad_norm"]) - gnorm64) / gnorm64,
+            "lr": abs(float(stats["lr"]) - lr64) / lr64}
+    clip = min(1.0, oc.clip_norm / max(gnorm64, 1e-12))
+    bc1, bc2 = 1.0 - oc.b1 ** step, 1.0 - oc.b2 ** step
+    worst = {"p": 0.0, "m": 0.0, "v": 0.0}
+    for n, (p0, m0, v0, g) in before.items():
+        gf = g * clip
+        m = oc.b1 * m0 + (1.0 - oc.b1) * gf
+        v = oc.b2 * v0 + (1.0 - oc.b2) * gf * gf
+        p = p0 - lr64 * ((m / bc1) / (np.sqrt(v / bc2) + oc.eps) + oc.weight_decay * p0)
+        for key, want, got in (("p", p, host(params[n])), ("m", m, host(state["opt"]["m"][n])),
+                               ("v", v, host(state["opt"]["v"][n]))):
+            scale = max(float(np.abs(want).max()), 1e-30)
+            worst[key] = max(worst[key], float(np.abs(got - want).max()) / scale)
+    return errs, worst, names
+
+
+def phase_training(torch, T, C, dev):
+    """Phase 19: whisper-medium trained on the card (module docstring)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.extract import run_cell
+    from repro_torch.optim import adamw as A
+    from repro_torch.training import step as S
+    from repro_torch.training import trainer as TR
+
+    t_phase = time.perf_counter()
+    cfg = C.get_config(TRAIN_ARCH)
+    check(cfg.attn_impl == "xla", f"phase 19 trains with attn_impl {cfg.attn_impl}")
+    n_params = cfg.param_counts()[0]
+    oc = A.OptimizerConfig(peak_lr=1e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    dc = DataConfig(seq_len=TRAIN_S, global_batch=TRAIN_B, seed=0)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=os.path.join(ROOT, "build"))
+    try:
+        def trainer(name, fail_at=None, every=TRAIN_SAVE):
+            tc = TR.TrainerConfig(total_steps=TRAIN_STEPS, checkpoint_every=every,
+                                  checkpoint_dir=os.path.join(root, name),
+                                  keep_checkpoints=1, log_every=TRAIN_STEPS + 1)
+            return TR.Trainer(cfg, tc, dc, oc, seed=0, device=dev,
+                              failure_injector=TR.FailureInjector(fail_at) if fail_at else None)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        tr = trainer("clean", every=TRAIN_STEPS)   # the last step's save alone
+        out = tr.run()
+        torch.cuda.synchronize()
+        clean_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        metrics = out["metrics"]
+        check(len(metrics) == TRAIN_STEPS and out["restarts"] == 0,
+              f"phase 19: {len(metrics)} steps, {out['restarts']} restarts")
+        losses = [m["loss"] for m in metrics]
+        check(all(math.isfinite(x) for x in losses), f"phase 19: losses {losses}")
+        lr_err = max(abs(m["lr"] - _schedule64(m["step"] + 1, oc)) / _schedule64(m["step"] + 1, oc)
+                     for m in metrics)
+        check(lr_err <= TRAIN_RTOL, f"phase 19: lr {lr_err:.3e} off the float64 schedule")
+        n_real = sum(p.numel() for p in out["final_state"]["params"].parameters())
+        step_times = [m["step_time_s"] for m in metrics]
+        step_s = statistics.median(step_times[1:])
+        log(f"phase 19: {TRAIN_ARCH} ({n_real:.4g} parameters; the analytic count "
+            f"{n_params:.4g} leaves out the position tables) trained {TRAIN_STEPS} "
+            f"steps of {TRAIN_B} x {TRAIN_S} decoder tokens over {cfg.encoder_seq_len} "
+            f"frames in {clean_s:.2f} s (the checkpoint of step {TRAIN_STEPS} "
+            f"included): losses {[round(x, 5) for x in losses]}, "
+            f"grad norms {[round(m['grad_norm'], 5) for m in metrics]}, step times "
+            f"{[round(x, 4) for x in step_times]} s; step {step_s:.4f} s "
+            f"(median of steps 2-{TRAIN_STEPS}), {TRAIN_B * TRAIN_S / step_s:.1f} "
+            f"decoder tokens/s; allocator peak {peak / 1e9:.2f} GB; lr within "
+            f"{lr_err:.2e} of float64")
+        clean = {k: v.detach().to("cpu", copy=True)
+                 for k, v in S.state_arrays(out["final_state"]).items()}
+
+        # one more AdamW update against the float64 twin
+        state = out["final_state"]
+        del out, tr
+        batch = {k: torch.as_tensor(v).to(dev)
+                 for k, v in SyntheticLM(cfg, dc).batch(TRAIN_STEPS).items()}
+        errs, worst, names = _adamw_twin(torch, A, S, state, cfg, batch, oc)
+        del batch
+        check(max(errs.values()) <= TRAIN_RTOL and max(worst.values()) <= TRAIN_RTOL,
+              f"phase 19: AdamW off its float64 twin: {errs}, {worst}")
+        log(f"phase 19: one AdamW update against its float64 twin: grad_norm "
+            f"{errs['grad_norm']:.2e}, lr {errs['lr']:.2e}, and on {len(names)} "
+            f"parameters' first {TRAIN_SLICE_LEN} elements p {worst['p']:.2e}, m "
+            f"{worst['m']:.2e}, v {worst['v']:.2e} (relative to each slice's max)")
+        del state
+        torch.cuda.empty_cache()
+
+        # killed after step TRAIN_SAVE, resumed from its checkpoint
+        t0 = time.perf_counter()
+        tr = trainer("resumed", fail_at=[TRAIN_SAVE])
+        out = tr.run()
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+        check(out["restarts"] == 1 and [m["step"] for m in out["metrics"]] ==
+              [0, 1, 2, 3], f"phase 19: resume ran steps {[m['step'] for m in out['metrics']]}")
+        got = {k: v.detach().to("cpu", copy=True)
+                 for k, v in S.state_arrays(out["final_state"]).items()}
+        del out, tr
+        torch.cuda.empty_cache()
+        diffs = {k: float((got[k].double() - clean[k].double()).abs().max()) for k in clean}
+        n_equal = sum(torch.equal(got[k], clean[k]) for k in clean)
+        log(f"phase 19: killed after step {TRAIN_SAVE} and resumed from its checkpoint "
+            f"in {resumed_s:.2f} s: {n_equal} of {len(clean)} leaves (params, m, v, "
+            f"step) bit for bit equal to the uninterrupted run's, largest difference "
+            f"{max(diffs.values()):.3e}")
+        check(n_equal == len(clean), "phase 19: the resumed run's step-4 state differs "
+              f"from the uninterrupted run's: {sorted(diffs.items(), key=lambda kv: -kv[1])[:4]}")
+        del got, clean
+
+        # elastic: a checkpoint written on the CPU resumes on the card
+        small = C.get_config(TRAIN_ARCH, smoke=True)
+        sdc = DataConfig(seq_len=16, global_batch=2, seed=0)
+        stc = lambda n: TR.TrainerConfig(total_steps=n, checkpoint_every=2,
+                                         checkpoint_dir=os.path.join(root, "elastic"),
+                                         log_every=n + 1)
+        TR.Trainer(small, stc(2), sdc, oc, seed=0, device="cpu").run()
+        written, _ = store.restore_tensors(os.path.join(root, "elastic"))
+        back = S.state_arrays(S.state_from_arrays(small, written, oc, dev))
+        check(all(torch.equal(back[k].cpu(), written[k]) for k in written),
+              "phase 19: the CPU's checkpoint did not load on the card bit for bit")
+        out = TR.Trainer(small, stc(4), sdc, oc, seed=0, device=dev).run()
+        check([m["step"] for m in out["metrics"]] == [2, 3]
+              and all(math.isfinite(m["loss"]) for m in out["metrics"]),
+              f"phase 19: the elastic resume ran {out['metrics']}")
+        log(f"phase 19: a {small.name} checkpoint written on the CPU at step 2 "
+            f"loaded on the card bit for bit ({len(written)} leaves) and trained "
+            f"on to step 4 there (losses {[round(m['loss'], 5) for m in out['metrics']]})")
+        del out
+
+        # the same cell's train profile on the card against meta
+        shape = ShapeSpec(f"train_s{TRAIN_S}_b{TRAIN_B}", TRAIN_S, TRAIN_B, "train")
+        t0 = time.perf_counter()
+        pc = run_cell(cfg, shape, device=dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        pm = run_cell(cfg, shape, device="meta")
+        meta_s = time.perf_counter() - t0
+        bad = _same_counts(pc, pm)
+        check(not bad, f"phase 19: the train profile's {bad} on the card differ from meta")
+        log(f"phase 19: its train profile on the card ({card_s:.2f} s) equals meta's "
+            f"({meta_s:.2f} s): dot_flops {pm.dot_flops:.6e} (model_flops "
+            f"{pm.model_flops:.6e}), hbm_bytes {pm.hbm_bytes:.6e}; allocator peak "
+            f"{pc.peak_memory_bytes / 1e9:.2f} GB against the tracker's "
+            f"{pm.peak_memory_bytes / 1e9:.2f} GB")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 19: {seconds:.1f} s")
+    return dict(step_s=step_s, tokens_per_s=TRAIN_B * TRAIN_S / step_s, seconds=seconds)
+
+
 def main() -> int:
     import torch
 
@@ -3230,6 +3625,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     model, cfg, fa_launches = phase_model(torch, FA, T, C, dev)
     phase_serving(torch, FA, T, E, model, cfg, dev)
+    p18c = phase_zoo_card_cell(torch, model, dev)
     del model
     torch.cuda.empty_cache()
 
@@ -3250,13 +3646,25 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     p17 = phase_frontier_service(torch, core, KC, dev, p3, p12)
+    torch.cuda.empty_cache()
+    p18 = phase_measurement(torch, core, KC, dev, p18c)
+    torch.cuda.empty_cache()
+    FA.reset_launch_counts()
+    reset_ssm_counts(RN, SS)
+    p19 = phase_training(torch, T, C, dev)
+    check(FA.flash_attention.launches == 0 and not any(ssm_counts(RN, SS).values()),
+          "phase 19 launched a model kernel (training takes attn_impl='xla')")
+    log(json.dumps({"end_to_end": "train_step", "arch": TRAIN_ARCH, "B": TRAIN_B,
+                    "S": TRAIN_S, "step_s": p19["step_s"],
+                    "decoder_tokens_per_s": p19["tokens_per_s"]}))
 
     kernels = []
     for name in REPLACES:
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
             launches=(p3["counts"][name] + p4["counts"][name]
-                      + p12["counts"][name] + p17["counts"][name]),
+                      + p12["counts"][name] + p17["counts"][name]
+                      + p18["counts"][name]),
             max_abs_err=errs[name], ms=rows[name]["ms"],
             plain_ms=rows[name]["plain_ms"], bound_ms=rows[name]["bound_ms"],
             bound_by=rows[name]["bound_by"], library_ms=None))

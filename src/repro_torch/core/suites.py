@@ -4,13 +4,15 @@
                                                (``repro_torch.core.genload``)
   zoo-smoke[:train|serve-prefill|serve-decode] the six smoke profiles of the
                                                model zoo, read from the JSON
-                                               files in ``zoo_cache/``
-  zoo[:scenario]                               the full zoo (not in this port
-                                               yet)
+                                               files in ``zoo_cache/`` (the
+                                               JAX package's extraction)
+  zoo[:scenario]                               the full zoo, read from the
+                                               port's cache under
+                                               ``build/repro_torch/zoo/``
+                                               (``core.model_zoo``)
 
-Zoo profiles are read cache-only: extracting a profile from a model needs
-the model stack and the measurement loop, which this port does not have
-yet, so a missing entry raises instead of compiling anything.
+Zoo profiles are read cache-only: a missing entry raises (with the command
+that extracts it, for the full zoo) instead of extracting anything.
 """
 
 from __future__ import annotations
@@ -86,22 +88,20 @@ def resolve_suite(suite: str, *,
     """Suite name -> profile list.
 
     Generated suites regenerate deterministically from the string alone;
-    ``zoo-smoke`` suites load the checked-in profiles.
+    ``zoo-smoke`` suites load the checked-in profiles; ``zoo`` suites load
+    the port's full-zoo cache (``core.model_zoo.resolve_zoo``).
     """
     if is_gen_suite(suite):
         return resolve_gen_suite(suite)
     smoke, scenario = parse_suite(suite)
     if not smoke:
-        raise ValueError(
-            f"suite {suite!r}: the full model zoo is not in the port yet; "
-            "its profiles are extracted by the model-stack and "
-            "measurement-loop slices")
+        from repro_torch.core.model_zoo import resolve_zoo
+        return resolve_zoo(scenario)
     out = []
     for path in smoke_cache_paths(scenario, cache_dir):
         if not os.path.exists(path):
             raise FileNotFoundError(
-                f"zoo cache entry {path} is missing; extraction arrives with "
-                "the model-stack slice of the port, so the port reads the "
+                f"zoo cache entry {path} is missing; the port reads the "
                 "smoke suite from its checked-in cache only")
         out.append(WorkloadProfile.load(path))
     return out

@@ -38,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.ref import flash_attention_ref as plain_flash_attention
 
 MAX_HEAD_DIM = 256
@@ -114,8 +115,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention of q ``(B, H, S, D)`` over k, v ``(B, K, T, D)``; query
     head ``h`` reads KV head ``h // (H // K)``.  Key ``j`` is live for
     query ``i`` when ``j <= i`` (``causal``) and ``i - j < window`` (when
-    ``window`` is set).  ``scale`` defaults to ``1 / sqrt(D)``."""
+    ``window`` is set).  ``scale`` defaults to ``1 / sqrt(D)``.  Raises
+    where autograd would need a backward (``refuse_autograd``)."""
     _check(q, k, v)
+    refuse_autograd("the flash-attention kernel K5", q, k, v)
     if not _on_kernel(q, k, v):
         return plain_flash_attention(q, k, v, causal=causal, window=window,
                                      scale=scale)

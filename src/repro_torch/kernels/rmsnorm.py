@@ -23,6 +23,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.ref import rmsnorm_ref as plain_rmsnorm
 from repro_torch.kernels.ref import rmsnorm_residual_ref as plain_rmsnorm_residual
 
@@ -73,6 +74,7 @@ def _stream(x: torch.Tensor) -> int:
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     """``x * rsqrt(mean(x^2) + eps) * scale`` over the last dim (K6)."""
+    refuse_autograd("the RMSNorm kernel K6", x, scale)
     if not _on_kernel(x, scale):
         return plain_rmsnorm(x, scale, eps=eps)
     out = torch.empty_like(x)
@@ -99,6 +101,7 @@ def rmsnorm_residual(x: torch.Tensor, residual: torch.Tensor,
                      eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
     """``h = x + residual`` in float32 -> ``(rmsnorm(h) * scale, h)`` in
     ``x``'s dtype (K7)."""
+    refuse_autograd("the fused residual RMSNorm kernel K7", x, residual, scale)
     if not _on_kernel(x, scale, residual):
         return plain_rmsnorm_residual(x, residual, scale, eps=eps)
     out, h = torch.empty_like(x), torch.empty_like(x)

@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.ref import selective_scan_ref as plain_selective_scan
 
 MAX_STATE = 16
@@ -94,6 +95,7 @@ def selective_scan(xi: torch.Tensor, dt_raw: torch.Tensor, Bm: torch.Tensor,
     """Returns ``(y (B, S, Din), hT (B, Din, N) float32)``; see the module
     docstring for ``y_dtype`` and ``out_state``."""
     _check(xi, dt_raw, Bm, Cm, A, h0, out_state)
+    refuse_autograd("the selective-scan kernel K8", xi, dt_raw, Bm, Cm, A, h0)
     y_dtype = y_dtype or xi.dtype
     if not _on_kernel(xi, dt_raw, Bm, Cm, A, h0, out_state):
         y, hT = plain_selective_scan(xi, dt_raw, Bm, Cm, A, h0, y_dtype=y_dtype)

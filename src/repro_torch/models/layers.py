@@ -41,6 +41,8 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def _init_dense(shape, dtype, generator, device, scale: Optional[float] = None):
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     if scale is None:
         scale = 1.0 / math.sqrt(shape[0])
     w = torch.randn(shape, generator=generator, device=device,
@@ -444,7 +446,9 @@ def moe_apply(p: Mapping, cfg: ModelConfig,
     gates = gates / gates.sum(-1, keepdim=True)
 
     # load-balancing aux loss (Switch-style)
-    density = F.one_hot(idx[:, 0], E).float().mean(0)
+    # one-hot by comparison (F.one_hot validates its input on the CPU and
+    # the card but not on meta, so its operations would differ by device)
+    density = (idx[:, :1] == torch.arange(E, device=idx.device)).float().mean(0)
     router_prob = probs.mean(0)
     aux = (density * router_prob).sum() * E * m.aux_loss_weight
 
@@ -464,16 +468,19 @@ def moe_apply(p: Mapping, cfg: ModelConfig,
         order = torch.argsort(flat_e, stable=True)
         token_of = order // k
         xs = xt[token_of]                                      # (T*k, D) grouped
-        sizes = torch.bincount(flat_e, minlength=E).tolist()
-        out = torch.empty_like(xs)
+        sizes = _expert_sizes(flat_e, E)
+        # each expert's rows in turn, joined by one cat (whose backward
+        # splits, where slice writes would make per-expert zero fills)
+        parts = []
         start = 0
         for e, n in enumerate(sizes):
             if n:
                 rows = slice(start, start + n)
                 h = act(torch.matmul(xs[rows], p["w_gate"][e].to(cd))) \
                     * torch.matmul(xs[rows], p["w_up"][e].to(cd))
-                out[rows] = torch.matmul(h, p["w_down"][e].to(cd))
+                parts.append(torch.matmul(h, p["w_down"][e].to(cd)))
                 start += n
+        out = torch.cat(parts) if parts else torch.empty_like(xs)
         w = gates.reshape(-1)[order].to(cd)[:, None]
         y = _combine(out * w, order, T, k)
 
@@ -486,6 +493,18 @@ def moe_apply(p: Mapping, cfg: ModelConfig,
         y = y + ys * sg
 
     return y.reshape(B, S, D), aux
+
+
+def _expert_sizes(flat_e: torch.Tensor, E: int):
+    """Rows routed to each of the E experts.  A ``meta`` tensor holds no
+    routing, so there the T*k rows are split evenly over the experts: the
+    experts' matmul FLOPs are the same for any split, and a real run's
+    operation and byte counts equal these whenever every expert gets at
+    least one row (``repro_torch.core.costs.OpCounter``)."""
+    if flat_e.device.type == "meta":
+        n = flat_e.numel()
+        return [n // E + (e < n % E) for e in range(E)]
+    return torch.bincount(flat_e, minlength=E).tolist()
 
 
 def _moe_capacity(p: Mapping, cfg: ModelConfig, xt: torch.Tensor,
@@ -506,12 +525,19 @@ def _moe_capacity(p: Mapping, cfg: ModelConfig, xt: torch.Tensor,
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
     token_of = order // k
-    counts = torch.bincount(flat_e, minlength=E)
+    counts = (torch.bincount(flat_e, minlength=E) if dev.type != "meta"
+              else flat_e.new_empty(E))   # no routing on meta: shapes only
     starts = torch.cumsum(counts, 0) - counts
     slot = torch.arange(T * k, device=dev) - starts[sorted_e]  # rank within expert
     keep = slot < C
     buf = torch.zeros((E, C, D), dtype=cd, device=dev)
-    buf[sorted_e[keep], slot[keep]] = xt[token_of[keep]]       # past C: dropped
+    if dev.type == "meta":
+        # no routing to drop rows by: every row is written (into slot
+        # C - 1 past C), so a meta count of this dispatch's scatter moves
+        # T*k rows where a real run moves the kept ones
+        buf[sorted_e, slot.clamp_max(C - 1)] = xt[token_of]
+    else:
+        buf[sorted_e[keep], slot[keep]] = xt[token_of[keep]]   # past C: dropped
     h = act(torch.matmul(buf, p["w_gate"].to(cd))) * torch.matmul(buf, p["w_up"].to(cd))
     out = torch.matmul(h, p["w_down"].to(cd))                  # (E, C, D)
     rows = out[sorted_e, slot.clamp_max(C - 1)]
@@ -584,6 +610,15 @@ def rglru_init(cfg: ModelConfig, generator, device) -> Params:
     }
 
 
+def _differentiated(*tensors: torch.Tensor) -> bool:
+    """True when autograd records ops on ``tensors``: the step loops then
+    build each step's state as a new tensor (``out=`` writes cannot be
+    differentiated) and take the steps' inputs by ``unbind``, whose
+    backward is one stack where indexing each step would fill a zero
+    tensor of the whole sequence per step; the values are the same."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _lru_scan(a: torch.Tensor, bx: torch.Tensor,
               h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """h_t = a_t * h_{t-1} + bx_t over axis 1, step by step as the JAX
@@ -591,6 +626,13 @@ def _lru_scan(a: torch.Tensor, bx: torch.Tensor,
     round otherwise).  a, bx: (B, S, W) f32 -> (ys (B, S, W), hT (B, W))."""
     a_t = a.transpose(0, 1).contiguous()
     b_t = bx.transpose(0, 1).contiguous()
+    if _differentiated(a_t, b_t, h0):
+        steps = []
+        h = h0
+        for a_s, b_s in zip(a_t.unbind(0), b_t.unbind(0)):
+            h = torch.addcmul(b_s, a_s, h)
+            steps.append(h)
+        return torch.stack(steps, 1), h
     hs = torch.empty_like(a_t)
     h = h0
     for t in range(a_t.shape[0]):
@@ -651,7 +693,8 @@ def mamba_init(cfg: ModelConfig, generator, device) -> Params:
     d_in = s.expand * d
     dt_rank = s.dt_rank or -(-d // 16)
     n = s.state_dim
-    u = torch.rand((d_in,), generator=generator, device=device)
+    u = (torch.empty((d_in,), device=device) if torch.device(device).type == "meta"
+         else torch.rand((d_in,), generator=generator, device=device))
     return {
         "w_in": _init_dense((d, 2 * d_in), dt, generator, device),
         "conv_w": _init_dense((s.conv_width, d_in), dt, generator, device, scale=0.5),
@@ -691,9 +734,16 @@ def _ssm_scan(xi: torch.Tensor, dt_in: torch.Tensor, Bm: torch.Tensor,
         dA = torch.exp(dt[..., None] * A)                        # (chunk, B, Din, N)
         dBx = (dt * xi[:, sl].float().transpose(0, 1))[..., None] \
             * Bm[:, sl].float().transpose(0, 1)[:, :, None, :]
-        hs = torch.empty_like(dA)
-        for t in range(dA.shape[0]):
-            h = torch.addcmul(dBx[t], dA[t], h, out=hs[t])
+        if _differentiated(dA, dBx, h):
+            steps = []
+            for dA_s, dBx_s in zip(dA.unbind(0), dBx.unbind(0)):
+                h = torch.addcmul(dBx_s, dA_s, h)
+                steps.append(h)
+            hs = torch.stack(steps)
+        else:
+            hs = torch.empty_like(dA)
+            for t in range(dA.shape[0]):
+                h = torch.addcmul(dBx[t], dA[t], h, out=hs[t])
         Cf = Cm[:, sl].float().transpose(0, 1)                   # (chunk, B, N)
         ys.append(torch.einsum("tbdn,tbn->btd", hs, Cf))
     return torch.cat(ys, dim=1), h

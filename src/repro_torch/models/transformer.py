@@ -31,7 +31,13 @@ counterpart (``init_model`` and ``init_cache`` return no axes); the KV
 caches and the recurrent states are written in place, and the cache
 ``forward``, ``prefill`` and ``decode_step`` return is the one they were
 given (the audio prefill replaces the cross k/v tensors inside it);
-everything runs under ``torch.inference_mode()``.  The audio forward with
+``prefill`` and ``decode_step`` run under ``torch.inference_mode()``, and
+so do ``forward``, ``encode`` and ``loss_fn`` unless autograd is on and
+the model has a parameter that requires grad (``repro_torch.training``
+turns its model's on), when they build the graph ``torch.autograd.grad``
+differentiates.  The kernels K5-K8 have no backward: a call that would
+need one raises, as the JAX package's Pallas kernels, which have no JVP
+rule, do under ``jax.grad``.  The audio forward with
 a cache (prefill) reads the cross k/v from the cache and does not run
 the encoder again, whose result the JAX package computes there and
 never reads.
@@ -57,6 +63,7 @@ agree exactly in float32 and to bf16 rounding in bfloat16.  With
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping, Tuple
 
 import torch
@@ -188,9 +195,11 @@ def init_model(cfg: ModelConfig, generator: torch.Generator = None,
     """Random weights with the JAX package's scales, drawn on ``device``
     from ``generator`` (a ``torch.Generator`` on that device; seed 0 when
     None).  The numbers differ from the JAX package's for the same seed:
-    ``repro_torch.carry.model_from_jax`` carries its weights across."""
+    ``repro_torch.carry.model_from_jax`` carries its weights across.  On
+    the ``meta`` device the weights have shapes and dtypes but no data
+    (the dry run's stand-ins)."""
     dev = resolve_device(device)
-    if generator is None:
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(dev).manual_seed(0)
     params = {"embed": L.embed_init(cfg, generator, dev),
               "final_norm": L.norm_init(cfg, dev)}
@@ -354,7 +363,27 @@ def _hybrid_stack(model: Model, cfg: ModelConfig, x, *, rope, mask, q_pos,
 # --------------------------------------------------------------------------- #
 
 
-@torch.inference_mode()
+def trains(model: nn.Module) -> bool:
+    """True when autograd is on and ``model`` has a parameter that requires
+    grad: ``forward``, ``encode`` and ``loss_fn`` then build a graph."""
+    return torch.is_grad_enabled() and any(p.requires_grad for p in model.parameters())
+
+
+def _inference_unless_training(fn):
+    """Run ``fn(model, ...)`` under ``torch.inference_mode()`` unless
+    ``trains(model)``."""
+
+    @functools.wraps(fn)
+    def wrapped(model, *args, **kwargs):
+        if trains(model):
+            return fn(model, *args, **kwargs)
+        with torch.inference_mode():
+            return fn(model, *args, **kwargs)
+
+    return wrapped
+
+
+@_inference_unless_training
 def encode(model: Model, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """Whisper encoder over stub frame embeddings (B, F, D): unmasked
     attention, no rope, learned positions."""
@@ -367,7 +396,7 @@ def encode(model: Model, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor
     return L.norm_apply(model.enc_norm, cfg, x)
 
 
-@torch.inference_mode()
+@_inference_unless_training
 def forward(model: Model, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
             cache=None):
     """Full-sequence forward -> (hidden (B,S,D), aux_loss[, cache]).
@@ -460,7 +489,7 @@ def _xent(model: Model, cfg: ModelConfig, hidden, labels):
     return loss_sum / denom, correct / denom
 
 
-@torch.inference_mode()
+@_inference_unless_training
 def loss_fn(model: Model, cfg: ModelConfig, batch: Mapping[str, torch.Tensor]):
     hidden, aux = forward(model, cfg, batch)
     loss, acc = _xent(model, cfg, hidden, batch["labels"])

@@ -58,10 +58,18 @@ def suite(name):
     return trio() if name == "trio" else P.resolve_suite(name)
 
 
+_SURVIVORS = {}
+
+
 def seeds(name):
     named = MachineBatch.from_models(P.VARIANTS)
     if name == "named":
         return named
+    if name == "survivors":   # of a gen:8 sweep of 2 003 variants
+        if name not in _SURVIVORS:
+            _SURVIVORS[name] = P.run_sweep("gen:8", n=2000, include_named=P.VARIANTS,
+                                           device="cpu").seed_codesign()
+        return _SURVIVORS[name]
     return MachineBatch.concat(named, ParamSpace.default().sample(5, seed=1))
 
 
@@ -387,6 +395,40 @@ def test_final_designs_and_feasibility_match_reference(reference, case):
     else:
         np.testing.assert_allclose(res.multipliers, ref["multipliers"],
                                    rtol=THETA_RTOL, atol=1e-12)
+
+
+#: ROADMAP R12: two budgets, the winners end strictly inside both
+INTERIOR = dict(area_budget=0.265, power_budget=0.265, projection="euclidean",
+                steps=10, lr=30.0, w_area=0.0, w_power=0.0)
+
+
+def test_two_budget_descent_ends_inside_both_budgets_as_the_reference_does(tmp_path):
+    """ROADMAP R12, traced: from a gen:8 sweep's survivors (every seed above
+    both budgets), a 10-step lr-30 descent with zero weights and the
+    Euclidean projection onto area and power budgets of 0.265 leaves the
+    best feasible design strictly inside both -- so its active set is empty
+    -- in the JAX package and in the port alike (the designs agree to
+    ``THETA_RTOL``).  The projection itself lands on the power budget
+    (``test_projection_matches_reference``); the descent's accepted steps
+    move the design inward and 10 steps stop it there."""
+    surv = seeds("survivors")
+    res = P.constrained_codesign(suite("gen:8"), surv, device="cpu", **INTERIOR)
+    ref, _ = run_reference({"c": {
+        "entry": "constrained", "machines": machines_json(surv),
+        "profiles": [p.to_json() for p in suite("gen:8")],
+        "kwargs": INTERIOR}}, tmp_path)["c"]
+    for f in ("area_final", "power_final", "objective_final"):
+        np.testing.assert_allclose(getattr(res, f), ref[f], rtol=THETA_RTOL)
+    np.testing.assert_array_equal(res.feasible, ref["feasible"])
+    best = int(np.argmin(np.where(res.feasible, res.objective_final, np.inf)))
+    for got in (res, ref):
+        area = got["area_final"] if isinstance(got, dict) else got.area_final
+        power = got["power_final"] if isinstance(got, dict) else got.power_final
+        assert area[best] < 0.265 * (1 - 1e-3) and power[best] < 0.265 * (1 - 1e-3)
+    m0 = PCD.machine_arrays_from_theta(np, PCD.theta_box(seeds("survivors"), 16.0)[0],
+                                       seeds("survivors").arrays())
+    assert np.all(DEFAULT_COST_MODEL.area(m0) > 0.265)
+    assert np.all(DEFAULT_COST_MODEL.power(m0) > 0.265)
 
 
 @pytest.mark.parametrize("case", CASES)

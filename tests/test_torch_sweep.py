@@ -85,13 +85,17 @@ def test_suites_resolve_like_the_reference(suite):
     assert [p.to_json() for p in port] == [p.to_json() for p in ref]
 
 
-def test_suite_grammar_errors():
+def test_suite_grammar_errors(monkeypatch):
+    from repro_torch.core import model_zoo as PZOO
+
     for bad in ("gen", "gen:0", "gen:4:mode=sobol", "zoo:bogus", "nope"):
         with pytest.raises(ValueError):
             P.validate_suite_name(bad)
-    with pytest.raises(ValueError, match="not in the port yet"):
+    # the full zoo is cache-only: a missing entry names the extraction command
+    monkeypatch.setattr(PZOO, "FULL_CACHE_DIR", os.path.join(ROOT, "no-such"))
+    with pytest.raises(RuntimeError, match="python -m repro_torch.core.model_zoo"):
         P.resolve_suite("zoo:train")
-    with pytest.raises(FileNotFoundError, match="model-stack slice"):
+    with pytest.raises(FileNotFoundError, match="checked-in cache"):
         PSUITES.resolve_suite("zoo-smoke", cache_dir=os.path.join(ROOT, "no-such"))
 
 
