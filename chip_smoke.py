@@ -173,7 +173,23 @@ Phases (any failure raises and the exit code is not 0):
      the CPU loads on the card bit for bit and trains on there; the train
      cell's profile on the card equal to its ``meta`` count; the step's
      time and tokens/s;
- 20. the kernels line, the card, and the result line.
+ 20. the hillclimb launcher (``python -m repro_torch.launch.hillclimb``,
+     called as ``main([...])``): ``--mode flash`` at chatglm3-6b's
+     train_4k (baseline and depth-2 probes on ``meta`` at published width),
+     its removed bytes equal to the score traffic counted by hand
+     (``attention_score_bytes``) and its hbm_bytes to max(h - removed +
+     added, added); one command a co-design mode on the card: ``--sweep
+     100000`` (K3, K1) with ``--grad 20 --area-budget 2.0
+     --sensitivities``, ``--budget-sweep`` inside the best seed's binding
+     window (a row binds, J* rises as the budget tightens), ``--pack 4``,
+     each result equal to the same call on the host (``--device cpu``,
+     float64, 1e-9) and the sweep's best fit and front to the plain
+     float32 path on the card (phase 17 holds the bilevel split);
+     ``--mode scan`` at falcon-mamba-7b's zoo_decode_s32768_b256 with
+     ``--sweep 100000``, its probes linear in N at N, N/2, N/4 and its
+     removed bytes equal to the count by hand
+     (``scan_state_bytes_by_hand``);
+ 21. the kernels line, the card, and the result line.
 
 It needs one CUDA card, the CUDA toolkit's nvcc and the repository's
 ``src/`` tree; without them it exits with an error and prints no result.
@@ -291,6 +307,79 @@ SSM_ARCH, SSM_B, SSM_S, SSM_DECODE_AFTER = "falcon-mamba-7b", 4, 2048, 2048
 #: 1.98 GHz boost clock.  An assumption for the scan's bound, stated beside
 #: the data sheet's f32 and HBM peaks above.
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
+
+
+def attention_score_bytes(cfg, shape) -> float:
+    """Bytes one layer of the plain attention (``models.layers._sdpa`` and
+    its causal mask, ``attn_impl="xla"``, bf16 compute, T = S) moves in
+    its (S x T) tensors, under the op counter's rule
+    (``core.costs.OpCounter``: an operation reads each input and writes
+    each output once; a matmul's q / k / v / context operands are linear
+    in S and left out): what ``--mode flash`` removes a layer, counted by
+    hand rather than fitted."""
+    check(cfg.compute_dtype == "bfloat16" and not cfg.attn_logit_softcap
+          and shape.kind in ("train", "prefill"),
+          f"attention_score_bytes counts bf16 train / prefill scores, not "
+          f"{cfg.name} {shape.kind}")
+    B, S = shape.global_batch, shape.seq_len
+    n = B * cfg.n_heads * S * S     # score elements: bf16 (c) or f32 (4)
+    m = B * S * S                   # mask elements: bool, one byte
+    c = 2
+    forward = (m                    # ones
+               + m                  # k_pos <= q_pos (the positions are linear)
+               + 3 * m              # ones & causal
+               + c * n              # Q K^T written
+               + 2 * c * n          # * scale
+               + (c + 4) * n        # .float()
+               + 2 * m              # ~mask
+               + 8 * n + m          # masked_fill
+               + 8 * n              # softmax
+               + (4 + c) * n        # .to(bf16)
+               + 2 * c * n          # einsum's copy of P into (b, k, s, g, t)
+               + c * n)             # P read by P V
+    if shape.kind == "prefill":
+        return float(forward)
+    backward = (c * n               # P read by dV = P^T dO
+                + c * n             # dP = dO V^T written
+                + (c + 4) * n       # dP.float()
+                + 12 * n            # softmax backward: dP, P, dS
+                + 8 * n + m         # masked_fill backward
+                + (4 + c) * n       # dS.to(bf16)
+                + 2 * c * n         # * scale
+                + c * n             # dS read by dK
+                + c * n)            # dS read by dQ
+    return float(forward + backward)
+
+
+def scan_state_bytes_by_hand(cfg, shape) -> float:
+    """Bytes proportional to the state dim N that one Mamba layer's decode
+    step (``models.layers.mamba_apply`` with the plain ``_ssm_scan``, f32
+    parameters, bf16 compute, one new token) moves under the op counter's
+    rule, the step's arguments read once: what ``--mode scan`` removes a
+    layer, counted by hand rather than measured from two probes."""
+    check(cfg.param_dtype == "float32" and cfg.compute_dtype == "bfloat16"
+          and shape.kind == "decode",
+          f"scan_state_bytes_by_hand counts f32-parameter bf16 decode steps, not "
+          f"{cfg.name} {shape.kind}")
+    B, N = shape.global_batch, cfg.ssm.state_dim
+    Din = cfg.ssm.expand * cfg.d_model
+    w = Din * N                     # the N-wide columns of w_xdbc (B and C) and of A
+    s = B * Din * N                 # the state and the discretised dA / dBx: f32
+    v = B * N                       # the B and C projections of the new token
+    arguments = (4 * 2 * w          # w_xdbc's B and C columns, f32
+                 + 4 * w            # A_log
+                 + 4 * s)           # the state cache
+    ops = (6 * 2 * w                # w_xdbc.to(bf16)
+           + 2 * 2 * w + 2 * 2 * v  # dbc = xi @ w_xdbc: the weight read, B and C written
+           + 2 * 6 * v              # B and C .float()
+           + 8 * w + 8 * w          # A = -exp(A_log)
+           + 4 * w + 4 * s          # dt * A
+           + 8 * s                  # dA = exp(.)
+           + 4 * v + 4 * s          # dBx = (dt x) * B
+           + 20 * s                 # h = addcmul(dBx, dA, h, out=hs): five f32 (B, Din, N)
+           + 4 * s + 4 * v          # y = einsum(hs, C)
+           + 12 * s)                # state["ssm"].copy_(hT)
+    return float(arguments + ops)
 
 
 class Failure(Exception):
@@ -3514,6 +3603,221 @@ def phase_training(torch, T, C, dev):
     return dict(step_s=step_s, tokens_per_s=TRAIN_B * TRAIN_S / step_s, seconds=seconds)
 
 
+#: phase 20: the hillclimb launcher's flash substitution at chatglm3-6b's
+#: train_4k (extracted on meta, full width and depth), then its co-design
+#: modes on the card; the scan substitution at falcon-mamba-7b's largest
+#: zoo shape whose meta extraction stays within a minute (its prefill s4096
+#: b16 cell is 282 318 ATen operations, 94.7 s on meta: every zoo prefill
+#: and train shape is longer)
+HC_ARCH, HC_SHAPE = "chatglm3-6b", "train_4k"
+HC_SCAN_ARCH, HC_SCAN_SHAPE = "falcon-mamba-7b", "zoo_decode_s32768_b256"
+HC_SWEEP_N = 100_000
+HC_GRAD = 20
+#: binds on the densest seed, whose descent grows its area (the others
+#: shrink toward their span box's corner, where no budget binds)
+HC_AREA = 2.0
+#: the frontier's budgets lie inside the binding window of the baseline
+#: seed, each row's best on this profile: from just above the least area
+#: its span box allows (0.0625) to above its optimum's (0.0715 at
+#: HC_GRAD steps), so that the tighter rows bind and J* rises as the budget
+#: tightens (the whole window lies below the other seeds' areas)
+HC_BUDGET_SWEEP = "0.064:0.076:4"
+HC_PACK, HC_PACK_AREA = 4, 2.0
+#: the card's float64 co-design against the host's
+HC_RTOL, HC_ATOL = 1e-9, 1e-12
+HC_CODESIGN_KEYS = ("codesign_sweep", "grad_codesign", "frontier_codesign",
+                    "pack_codesign", "bilevel_codesign")
+
+
+def blob_diffs(got, want, rtol=HC_RTOL, atol=HC_ATOL, path=""):
+    """Where two JSON results differ: keys, lengths, names and flags
+    exactly; floats within ``atol + rtol * max(|a|, |b|)`` (NaN where NaN)."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(want):
+            return [f"{path}: keys {sorted(got) if isinstance(got, dict) else got}"]
+        return [d for k in want for d in blob_diffs(got[k], want[k], rtol, atol,
+                                                    f"{path}.{k}")]
+    if isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            return [f"{path}: length"]
+        return [d for i, (g, w) in enumerate(zip(got, want))
+                for d in blob_diffs(g, w, rtol, atol, f"{path}[{i}]")]
+    if isinstance(want, float) and isinstance(got, (int, float)):
+        if math.isnan(want) and math.isnan(got):
+            return []
+        ok = abs(got - want) <= atol + rtol * max(abs(got), abs(want))
+        return [] if ok else [f"{path}: {got!r} against {want!r}"]
+    return [] if got == want else [f"{path}: {got!r} against {want!r}"]
+
+
+def _hold_sweep(torch, core, HC, dev, prof, cd, what):
+    """Phase 20's sweep (K3, K1 on the card) against the plain float32 path
+    on the card by name, and the host's float64 best fit within TOL."""
+    machines = HC.machine_candidates(HC_SWEEP_N)
+    plain = core.batched_congruence([prof], machines, clamp=True,
+                                    backend=core.TorchBackend(dev, torch.float32))
+    names_p, area, agg = _front_maps(plain)
+    names_k = [row["variant"] for row in cd["pareto"]]
+    best_p = machines.names[int(plain.best_fit_indices()[0])]
+    check(cd["backend"] == "cuda" and cd["num_variants"] == len(machines),
+          f"phase 20 ({what}): the sweep ran on {cd['backend']}")
+    check(cd["best_variant"] == best_p or agg[cd["best_variant"]] <= agg[best_p] + TOL,
+          f"phase 20 ({what}): best fit {cd['best_variant']} against plain f32's {best_p}")
+    check(fronts_agree(names_k, names_p, area, agg),
+          f"phase 20 ({what}): 2-D fronts differ: {names_k} vs {names_p}")
+    host = HC.codesign_sweep(prof, HC_SWEEP_N, device="cpu")
+    check(abs(cd["best_aggregate"] - host["best_aggregate"]) <= TOL,
+          f"phase 20 ({what}): best aggregate {cd['best_aggregate']} against the "
+          f"host's float64 {host['best_aggregate']}")
+    return (f"best {cd['best_variant']} ({cd['best_aggregate']:.6g}; plain f32 "
+            f"{best_p}, host f64 {host['best_variant']} {host['best_aggregate']:.6g}), "
+            f"front {len(names_k)} variants equal to plain f32's")
+
+
+def phase_hillclimb(torch, core, KC, dev):
+    """Phase 20: ``python -m repro_torch.launch.hillclimb`` on the card."""
+    from repro_torch import configs as C
+    from repro_torch.configs.shapes import resolve_shape
+    from repro_torch.launch import hillclimb as HC
+    from repro_torch.launch.extract import run_cell
+
+    t_phase = time.perf_counter()
+    rows = {}
+
+    def launch(label, arch, shape, mode, argv):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = HC.main(["--arch", arch, "--shape", shape, "--mode", mode,
+                      "--tag", label] + argv)
+        torch.cuda.synchronize()
+        rows[label] = time.perf_counter() - t0
+        check(rc == 0, f"phase 20: hillclimb {label} returned {rc}")
+        name = C.get_config(arch).name
+        path = os.path.join(HC.DEFAULT_OUT, f"{name}__{shape}__1x1__{label}.json")
+        with open(path) as f:
+            blob = json.load(f)
+        prof = core.WorkloadProfile.from_json(blob)
+        prof.meta = {k: v for k, v in prof.meta.items() if k not in HC_CODESIGN_KEYS}
+        return blob, prof
+
+    def hold(label, card, host_fn):
+        t0 = time.perf_counter()
+        bad = blob_diffs(card, json.loads(json.dumps(host_fn())))
+        rows[f"{label}_host"] = time.perf_counter() - t0
+        check(not bad, f"phase 20 ({label}): the card's result differs from "
+              f"--device cpu's: {bad[:4]}")
+
+    KC.reset_launch_counts()
+    cfg, shape = C.get_config(HC_ARCH), resolve_shape(HC_SHAPE)
+    # (a) flash: the sweep (K3, K1) and the budgeted descent with its prices
+    blob, prof = launch("flash-grad", HC_ARCH, HC_SHAPE, "flash", [
+        "--sweep", str(HC_SWEEP_N), "--grad", str(HC_GRAD),
+        "--area-budget", str(HC_AREA), "--sensitivities"])
+    counts = KC.launch_counts()
+    check(counts["congruence"] > 0 and counts["default_beta"] > 0,
+          f"phase 20 missed a kernel: {counts}")
+    sub = blob["meta"]["flash_substitution"]
+    L = HC.attention_layers(cfg)
+    by_hand = L * attention_score_bytes(cfg, shape)
+    check(sub["layers"] == L and abs(sub["removed_bytes"] - by_hand) <= 1e-6 * by_hand,
+          f"phase 20: removed {sub['removed_bytes']:.9e} B against "
+          f"{by_hand:.9e} counted by hand")
+    check(sub["added_bytes"] == L * HC.flash_kernel_bytes_per_layer(cfg, shape),
+          "phase 20: the flash kernel's bytes")
+    t0 = time.perf_counter()
+    base = run_cell(cfg, shape, device="meta")
+    rows["flash_baseline"] = time.perf_counter() - t0
+    want = max(base.hbm_bytes - sub["removed_bytes"] + sub["added_bytes"],
+               sub["added_bytes"])
+    check(blob["hbm_bytes"] == want, f"phase 20: hbm_bytes {blob['hbm_bytes']} "
+          f"against {want}")
+    log(f"phase 20: hillclimb --mode flash {HC_ARCH} {HC_SHAPE} (extracted on meta): "
+        f"hbm_bytes {base.hbm_bytes:.6e} -> {blob['hbm_bytes']:.6e}: removed "
+        f"{sub['removed_bytes']:.9e} B over {L} layers (the count by hand "
+        f"{by_hand:.9e}), added {sub['added_bytes']:.6e}")
+    sweep_line = _hold_sweep(torch, core, HC, dev, prof,
+                             blob["meta"]["codesign_sweep"], "flash")
+    gd = blob["meta"]["grad_codesign"]
+    hold("flash-grad", gd, lambda: HC.codesign_grad(
+        prof, HC_GRAD, area_budget=HC_AREA, sensitivities=True, device="cpu"))
+    prices = {v["name"]: v["shadow_prices"]["area"]
+              for v in gd["sensitivities"]["variants"]}
+    log(f"phase 20: --sweep {HC_SWEEP_N}: {sweep_line}; --grad {HC_GRAD} "
+        f"--area-budget {HC_AREA} --sensitivities: best {gd['best_variant']}, "
+        f"area prices {prices}; equal to --device cpu")
+
+    # (b) the frontier and (c) packing, one command each (phase 17 holds
+    # the bilevel split on the card, at a total where a budget binds)
+    blob, _ = launch("flash-frontier", HC_ARCH, HC_SHAPE, "flash", [
+        "--grad", str(HC_GRAD), "--budget-sweep", HC_BUDGET_SWEEP, "--sensitivities"])
+    fr = blob["meta"]["frontier_codesign"]
+    hold("flash-frontier", fr, lambda: HC.codesign_frontier(
+        prof, HC.parse_budget_sweep(None, HC_BUDGET_SWEEP), HC_GRAD,
+        device="cpu").to_json())
+    pts = fr["points"]
+    feas = [p for p in pts if p["feasible"]]
+    binding = [p["budget"] for p in feas if p["dJ_dbudget"] < 0.0]
+    check(len(feas) == len(pts) and all(p["area"] <= p["budget"] * (1 + 1e-9)
+                                        for p in pts),
+          f"phase 20: frontier rows infeasible or over budget: {pts}")
+    check(bool(binding) and all(a >= b - 1e-12 for a, b in
+                                zip(fr["objective"], fr["objective"][1:]))
+          and fr["objective"][0] > fr["objective"][-1],
+          f"phase 20: no frontier budget binds (dJ*/db "
+          f"{[p['dJ_dbudget'] for p in pts]}, J* {fr['objective']})")
+    blob, _ = launch("flash-pack", HC_ARCH, HC_SHAPE, "flash", [
+        "--pack", str(HC_PACK), "--area-budget", str(HC_PACK_AREA)])
+    pk = blob["meta"]["pack_codesign"]
+    hold("flash-pack", pk, lambda: HC.codesign_pack(
+        prof, HC_PACK, lr=0.1, area_budget=HC_PACK_AREA,
+        device="cpu").to_json(top_k=8))
+    check(pk["feasible"] is True and pk["objective_final"] <= pk["objective_seed"],
+          f"phase 20: packing {pk['objective_seed']} -> {pk['objective_final']}, "
+          f"feasible {pk['feasible']}")
+    log(f"phase 20: --budget-sweep {HC_BUDGET_SWEEP}: J* {fr['objective']}, "
+        f"binding {binding}, dJ*/db {[p['dJ_dbudget'] for p in pts]}, best seeds "
+        f"{[p['best_seed'] for p in pts]}; --pack {HC_PACK} (fleet area "
+        f"{HC_PACK_AREA}): {pk['num_apps']} apps, objective "
+        f"{pk['objective_seed']:.6g} -> {pk['objective_final']:.6g}; each equal to "
+        "the host's")
+
+    # (e) scan at falcon-mamba-7b's full width
+    cfg, shape = C.get_config(HC_SCAN_ARCH), resolve_shape(HC_SCAN_SHAPE)
+    blob, prof = launch("scan-sweep", HC_SCAN_ARCH, HC_SCAN_SHAPE, "scan",
+                        ["--sweep", str(HC_SWEEP_N)])
+    sub = blob["meta"]["scan_substitution"]
+    N, S, B = cfg.ssm.state_dim, shape.seq_len, shape.global_batch
+    t0 = time.perf_counter()
+    h = [HC._probe_hbm(cfg, shape, S, B, state_dim=n) for n in (N, N // 2, N // 4)]
+    base = run_cell(cfg, shape, device="meta")
+    rows["scan_holds"] = time.perf_counter() - t0
+    check(abs((h[0] - h[1]) - 2.0 * (h[1] - h[2])) <= 1e-6 * (h[0] - h[1]),
+          f"phase 20: the scan probes are not linear in N: {h}")
+    by_hand = cfg.n_layers * scan_state_bytes_by_hand(cfg, shape)
+    check(abs(sub["removed_bytes"] - by_hand) <= 1e-6 * by_hand,
+          f"phase 20: the scan's removed {sub['removed_bytes']:.9e} B against "
+          f"{by_hand:.9e} counted by hand")
+    check(sub["added_bytes"] == cfg.n_layers * HC.scan_kernel_bytes_per_layer(cfg, shape),
+          "phase 20: the scan kernel's bytes")
+    want = max(base.hbm_bytes - sub["removed_bytes"] + sub["added_bytes"],
+               sub["added_bytes"])
+    check(blob["hbm_bytes"] == want, f"phase 20: scan hbm_bytes {blob['hbm_bytes']} "
+          f"against {want}")
+    sweep_line = _hold_sweep(torch, core, HC, dev, prof,
+                             blob["meta"]["codesign_sweep"], "scan")
+    counts = KC.launch_counts()
+    log(f"phase 20: hillclimb --mode scan {HC_SCAN_ARCH} {HC_SCAN_SHAPE}: hbm_bytes "
+        f"{base.hbm_bytes:.6e} -> {blob['hbm_bytes']:.6e} (removed "
+        f"{sub['removed_bytes']:.9e}, the count by hand {by_hand:.9e}, the probes "
+        f"at N {N}, {N // 2}, {N // 4} linear; "
+        f"added {sub['added_bytes']:.6e}: the kernel term counts B x S tokens on a "
+        f"decode cell too, R15); --sweep {HC_SWEEP_N}: {sweep_line}; launches {counts}")
+    seconds = time.perf_counter() - t_phase
+    log(json.dumps({"end_to_end": "hillclimb", "seconds": rows}))
+    log(f"phase 20: {seconds:.1f} s")
+    return dict(counts=counts, seconds=seconds, rows=rows)
+
+
 def main() -> int:
     import torch
 
@@ -3657,6 +3961,8 @@ def main() -> int:
     log(json.dumps({"end_to_end": "train_step", "arch": TRAIN_ARCH, "B": TRAIN_B,
                     "S": TRAIN_S, "step_s": p19["step_s"],
                     "decoder_tokens_per_s": p19["tokens_per_s"]}))
+    torch.cuda.empty_cache()
+    p20 = phase_hillclimb(torch, core, KC, dev)
 
     kernels = []
     for name in REPLACES:
@@ -3664,7 +3970,7 @@ def main() -> int:
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
             launches=(p3["counts"][name] + p4["counts"][name]
                       + p12["counts"][name] + p17["counts"][name]
-                      + p18["counts"][name]),
+                      + p18["counts"][name] + p20["counts"][name]),
             max_abs_err=errs[name], ms=rows[name]["ms"],
             plain_ms=rows[name]["plain_ms"], bound_ms=rows[name]["bound_ms"],
             bound_by=rows[name]["bound_by"], library_ms=None))

@@ -1,7 +1,8 @@
 """Run the JAX package's co-design descents in a subprocess, for the port's
 parity tests (``test_torch_codesign.py``, ``test_torch_constrained.py``,
 ``test_torch_frontier.py``, ``test_torch_implicit.py``,
-``test_torch_packing.py``, ``test_torch_service.py``).
+``test_torch_packing.py``, ``test_torch_service.py``,
+``test_torch_hillclimb.py``).
 
 On jax 0.9.0 the JAX package's ``jax`` backend cannot be built in the test
 process: ``kernels_xp.JaxBackend`` imports ``jax.experimental.enable_x64``,
@@ -15,7 +16,7 @@ the stand-in stays inside this process.
 
 ``CASES.json`` maps a case name to ``{"entry": "grad" | "constrained" |
 "joint" | "frontier" | "pack" | "bilevel" | "sensitivities" |
-"jstar_grad", "profiles": [WorkloadProfile JSON, ...] (or "groups":
+"jstar_grad" | "hillclimb", "profiles": [WorkloadProfile JSON, ...] (or "groups":
 [[...], ...] for "joint"), "machines": {MachineBatch field: list},
 "kwargs": {...}}``; a ``"spec"`` entry in ``kwargs`` is a ``CodesignSpec``
 JSON.  Entry-specific keys:
@@ -30,7 +31,16 @@ JSON.  Entry-specific keys:
   result (``kwargs`` then go to ``sensitivities_of``);
 * ``jstar_grad``: ``"budgets": [area, power]``; reports
   ``implicit_jstar_fn(**kwargs)(budgets)`` and ``jax.grad`` of its
-  minimum over the variants.
+  minimum over the variants;
+* ``hillclimb``: ``"fn"`` names a co-design wrapper of
+  ``repro.launch.hillclimb`` (``codesign_grad``, ``codesign_frontier``,
+  ``codesign_pack``, ``codesign_bilevel``, ``codesign_joint``), called as
+  ``fn(profiles[0], *args, **kwargs)`` (``codesign_joint`` on ``profiles``
+  as one group); ``"bilevel_defaults"`` overrides
+  ``repro.core.implicit._BILEVEL_DEFAULTS`` for the call.  No
+  ``"machines"``: the wrappers seed from the named variants.  The module's
+  import appends a 512-device request to ``XLA_FLAGS``; JAX is initialised
+  before it, so the request has no effect.
 
 Every case's arrays land under ``<case>.<field>``; its names, reports and
 picks under ``<case>.json``.
@@ -216,6 +226,8 @@ def _reference_case(case):
     from repro.core.spec import CodesignSpec
     from repro.core.sweep import MachineBatch
 
+    if case["entry"] == "hillclimb":
+        return _hillclimb_case(case)
     m = case["machines"]
     mb = MachineBatch(names=list(m["names"]),
                       **{f: np.asarray(m[f], dtype=np.float64)
@@ -283,6 +295,35 @@ def _reference_case(case):
             grad = np.asarray(jax.grad(lambda bb: jnp.min(f(bb)))(b))
         return {"value": value, "grad": grad}, {}
     raise ValueError(f"unknown entry {entry!r}")
+
+
+def _hillclimb_case(case):
+    """One ``repro.launch.hillclimb`` co-design wrapper; ``(arrays, blob)``."""
+    import jax
+
+    jax.devices()   # initialise before the launcher's XLA_FLAGS request
+    from repro.core import WorkloadProfile
+    from repro.core import implicit as RI
+    from repro.launch import hillclimb as RH
+
+    profiles = [WorkloadProfile.from_json(p) for p in case["profiles"]]
+    fn = case["fn"]
+    first = profiles if fn == "codesign_joint" else profiles[0]
+    defaults = dict(RI._BILEVEL_DEFAULTS)
+    RI._BILEVEL_DEFAULTS.update(case.get("bilevel_defaults", {}))
+    try:
+        out = getattr(RH, fn)(first, *case.get("args", []),
+                              **case.get("kwargs", {}))
+    finally:
+        RI._BILEVEL_DEFAULTS.clear()
+        RI._BILEVEL_DEFAULTS.update(defaults)
+    if fn == "codesign_frontier":
+        return frontier_arrays(out)
+    if fn == "codesign_pack":
+        return packing_arrays(out)
+    if fn == "codesign_bilevel":
+        return bilevel_arrays(out)
+    return {}, {"to_json": out}
 
 
 def main(src, out):
