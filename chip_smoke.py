@@ -189,7 +189,30 @@ Phases (any failure raises and the exit code is not 0):
      ``--sweep 100000``, its probes linear in N at N, N/2, N/4 and its
      removed bytes equal to the count by hand
      (``scan_state_bytes_by_hand``);
- 21. the kernels line, the card, and the result line.
+ 21. the sharded layer: (a) the dry run (``python -m
+     repro_torch.launch.dryrun``) of chatglm3-6b's train_4k on the pod
+     mesh (16 x 16, its default variant zero1) and deepseek-67b's on the
+     multi-pod mesh (2 x 16 x 16, fsdp), at published width and depth on
+     ``meta``, each in a child process that owns its fake process group
+     (started before phase 20, on the host's cores), and chatglm3-6b's
+     zoo cell ``zoo_train_s2048_b64`` through ``core.model_zoo``'s pod
+     path (per device on ``pod16x16`` under zero1, as the JAX package
+     extracts its full cells): per device, dot FLOPs
+     equal to a count by hand (``train_dot_by_hand``), collective bytes
+     by kind, pod-crossing bytes on the multi-pod mesh only, parameter
+     bytes equal to the specs' shards; (b) ``hillclimb --mode flash
+     --mesh pod --joint --grad 10 --sweep 100000`` at chatglm3-6b's
+     train_4k in a child (its profiles on ``meta``, its co-design on the
+     card, the sweep through K3 then K1, held as phase 20 holds it):
+     the three variants' collective bytes differ, fsdp's parameter
+     all-gathers the largest, the joint trajectory never rises, the
+     NumPy re-score within 1e-6; (c) a real NCCL world of the card in this
+     process: ``shard_sweep`` over the ``variants`` mesh (K4 on each
+     rank's slice) equal to the meshless run bit for bit, and a train step
+     of chatglm3-6b's width at 2 layers sharded on a 1 x 1 mesh against the
+     unsharded step (loss 1e-6 relative, every gradient 1e-5 of the
+     largest);
+ 22. the kernels line, the card, and the result line.
 
 It needs one CUDA card, the CUDA toolkit's nvcc and the repository's
 ``src/`` tree; without them it exits with an error and prints no result.
@@ -3283,7 +3306,7 @@ def phase_zoo_card_cell(torch, model, dev):
                 if c.shape.name == ZOO_CARD_CELL)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    prof = PZ.extract_profile(cell, device=dev, model=model)
+    prof = PZ.extract_profile(cell, device=dev, model=model, mesh="1x1")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     log(f"phase 18 (c): {cell.name} on the card with phase 7's weights in "
@@ -3349,7 +3372,7 @@ def phase_measurement(torch, core, KC, dev, p18c):
     full = {}
     for cell in PZ.zoo_cells(archs=(ZOO_ARCH,)):
         t0 = time.perf_counter()
-        p = PZ.extract_profile(cell, device="meta")
+        p = PZ.extract_profile(cell, device="meta", mesh="1x1")
         secs = time.perf_counter() - t0
         full[cell.shape.name] = p
         want = R.model_flops_for(params_active=p.params_active, tokens=p.tokens,
@@ -3660,14 +3683,14 @@ def _hold_sweep(torch, core, HC, dev, prof, cd, what):
     names_k = [row["variant"] for row in cd["pareto"]]
     best_p = machines.names[int(plain.best_fit_indices()[0])]
     check(cd["backend"] == "cuda" and cd["num_variants"] == len(machines),
-          f"phase 20 ({what}): the sweep ran on {cd['backend']}")
+          f"{what}: the sweep ran on {cd['backend']}")
     check(cd["best_variant"] == best_p or agg[cd["best_variant"]] <= agg[best_p] + TOL,
-          f"phase 20 ({what}): best fit {cd['best_variant']} against plain f32's {best_p}")
+          f"{what}: best fit {cd['best_variant']} against plain f32's {best_p}")
     check(fronts_agree(names_k, names_p, area, agg),
-          f"phase 20 ({what}): 2-D fronts differ: {names_k} vs {names_p}")
+          f"{what}: 2-D fronts differ: {names_k} vs {names_p}")
     host = HC.codesign_sweep(prof, HC_SWEEP_N, device="cpu")
     check(abs(cd["best_aggregate"] - host["best_aggregate"]) <= TOL,
-          f"phase 20 ({what}): best aggregate {cd['best_aggregate']} against the "
+          f"{what}: best aggregate {cd['best_aggregate']} against the "
           f"host's float64 {host['best_aggregate']}")
     return (f"best {cd['best_variant']} ({cd['best_aggregate']:.6g}; plain f32 "
             f"{best_p}, host f64 {host['best_variant']} {host['best_aggregate']:.6g}), "
@@ -3688,7 +3711,7 @@ def phase_hillclimb(torch, core, KC, dev):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rc = HC.main(["--arch", arch, "--shape", shape, "--mode", mode,
-                      "--tag", label] + argv)
+                      "--mesh", "1x1", "--tag", label] + argv)
         torch.cuda.synchronize()
         rows[label] = time.perf_counter() - t0
         check(rc == 0, f"phase 20: hillclimb {label} returned {rc}")
@@ -3736,7 +3759,7 @@ def phase_hillclimb(torch, core, KC, dev):
         f"{sub['removed_bytes']:.9e} B over {L} layers (the count by hand "
         f"{by_hand:.9e}), added {sub['added_bytes']:.6e}")
     sweep_line = _hold_sweep(torch, core, HC, dev, prof,
-                             blob["meta"]["codesign_sweep"], "flash")
+                             blob["meta"]["codesign_sweep"], "phase 20 (flash)")
     gd = blob["meta"]["grad_codesign"]
     hold("flash-grad", gd, lambda: HC.codesign_grad(
         prof, HC_GRAD, area_budget=HC_AREA, sensitivities=True, device="cpu"))
@@ -3804,7 +3827,7 @@ def phase_hillclimb(torch, core, KC, dev):
     check(blob["hbm_bytes"] == want, f"phase 20: scan hbm_bytes {blob['hbm_bytes']} "
           f"against {want}")
     sweep_line = _hold_sweep(torch, core, HC, dev, prof,
-                             blob["meta"]["codesign_sweep"], "scan")
+                             blob["meta"]["codesign_sweep"], "phase 20 (scan)")
     counts = KC.launch_counts()
     log(f"phase 20: hillclimb --mode scan {HC_SCAN_ARCH} {HC_SCAN_SHAPE}: hbm_bytes "
         f"{base.hbm_bytes:.6e} -> {blob['hbm_bytes']:.6e} (removed "
@@ -3816,6 +3839,379 @@ def phase_hillclimb(torch, core, KC, dev):
     log(json.dumps({"end_to_end": "hillclimb", "seconds": rows}))
     log(f"phase 20: {seconds:.1f} s")
     return dict(counts=counts, seconds=seconds, rows=rows)
+
+
+
+# --------------------------------------------------------------------------- #
+# Phase 21: the sharded layer -- per-device profiles with collectives on the
+# production meshes (a fake process group, in child processes), the
+# hillclimb launcher's --joint on the pod mesh, and a real NCCL world on the
+# card (shard_sweep over the variants mesh, a sharded train step)
+# --------------------------------------------------------------------------- #
+
+#: (arch, shape, --mesh, --variant or None for default_variant); the dry run
+#: of each runs on meta in a child process of its own, started before phase
+#: 20 (it needs no card; phases 1-19's timings run without it) and read here
+P21_CELLS = (("chatglm3-6b", "train_4k", "pod", None),
+             ("deepseek-67b", "train_4k", "multipod", "fsdp"))
+P21_MESHES = {"pod": ("pod16x16", {"data": 16, "model": 16}, False),
+              "multipod": ("pods2x16x16", {"pod": 2, "data": 16, "model": 16}, True)}
+P21_DRYRUN_TIMEOUT = 900
+#: phase 21 (a): a full zoo cell through ``core.model_zoo.extract_profile``,
+#: which profiles it on the pod mesh under default_variant (zero1) in a
+#: child process of its own
+P21_ZOO_CELL = ("chatglm3-6b", "zoo_train_s2048_b64")
+#: phase 21 (b): the launcher's --mesh (its profile label and device count),
+#: the joint descent's steps (its sweep is phase 20's HC_SWEEP_N), and the
+#: NumPy re-score's bound
+P21_JOINT_MESH = ("pod", "pod16x16", 256)
+P21_GRAD = 10
+P21_RESCORE = 1e-6
+#: phase 21 (c): the real process group's backend
+P21_BACKEND = "nccl"
+#: phase 21 (c): shard_sweep over the variants mesh, and the train step on a
+#: 1 x 1 mesh (chatglm3-6b's width at P21_TRAIN_LAYERS layers, float32)
+P21_SWEEP_N = 100_000
+P21_TRAIN_LAYERS, P21_TRAIN_B, P21_TRAIN_S = 2, 2, 256
+#: every gradient of that step against the unsharded one, on the largest's
+#: scale: float32 sums in another order (the log-sum-exp over the
+#: vocabulary from a max and a sum, where the unsharded path calls
+#: ``torch.logsumexp``) move them by ~1e-6 of it on the card
+P21_GRAD_TOL = 1e-5
+
+
+def _p21_dir():
+    return os.path.join(ROOT, "build", "chip_smoke_p21")
+
+
+def start_dryrun_children():
+    """Phase 21 (a)'s dry runs, each in a child process that owns its fake
+    process group; they run on the host's cores while the card works.  The
+    fake group is PyTorch's internal API: probed here, loudly."""
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401 (probe)
+
+    root = _p21_dir()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    children = []
+    zoo_code = ("import sys\n"
+                "from repro_torch.core import model_zoo as PZ\n"
+                "cell = next(c for c in PZ.zoo_cells(archs=(sys.argv[1],))\n"
+                "            if c.shape.name == sys.argv[2])\n"
+                "PZ.extract_profile(cell, device='meta', verbose=True).save(sys.argv[3])\n")
+    out = open(os.path.join(root, "zoo.log"), "w")
+    children.append((*P21_ZOO_CELL, "zoo", None, out, time.perf_counter(),
+                     subprocess.Popen([sys.executable, "-c", zoo_code, *P21_ZOO_CELL,
+                                       os.path.join(root, "zoo.json")],
+                                      env=env, cwd=ROOT, stdout=out,
+                                      stderr=subprocess.STDOUT)))
+    for arch, shape, mesh, variant in P21_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+               "--shape", shape, "--mesh", mesh, "--out", root]
+        if variant:
+            cmd += ["--variant", variant]
+        out = open(os.path.join(root, f"{arch}.log"), "w")
+        children.append((arch, shape, mesh, variant, out, time.perf_counter(),
+                         subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=out,
+                                          stderr=subprocess.STDOUT)))
+    return children
+
+
+def stop_children(children):
+    for *_, out, _, proc in children or ():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+
+
+def train_dot_by_hand(cfg, shape, dp, tp):
+    """Per-device dot FLOPs of one train step of a dense model on a (dp, tp)
+    grid under the sharding rules: per layer, the q / k / v / out
+    projections and the MLP over the device's batch rows with the
+    "model" slice of their heads or ffn (the k / v heads split over
+    "model" on head_dim when they do not divide, then gathered), the
+    attention over the device's query heads, forward plus a backward of
+    twice the forward; and the unembedding over its vocabulary slice."""
+    B, S, D = shape.global_batch // dp, shape.seq_len, cfg.d_model
+    hd, H, K = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+    T = B * S
+    q = H * hd // tp
+    kv = K * hd // tp
+    h_loc = H // tp
+    per_layer = (2 * T * D * q + 2 * (2 * T * D * kv) + 2 * (2 * B * h_loc * S * S * hd)
+                 + 2 * T * q * D + 3 * (2 * T * D * (cfg.d_ff // tp)))
+    unembed = 2 * T * D * (cfg.vocab_size // tp)
+    return 3 * per_layer, 3 * unembed
+
+
+def param_bytes_by_specs(cfg, sizes, variant, multi_pod):
+    """One device's parameter bytes: each tensor's shard under the rules."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import transformer as T
+
+    model = T.init_model(cfg, device="meta")
+    sc = SH.ShardingConfig(variant=variant, multi_pod=multi_pod)
+    specs = SH.param_specs(T.param_shapes(model), T.param_axes(cfg), sizes, sc)
+    total = 0
+    for name, p in model.named_parameters():
+        spec = specs
+        for part in name.split("."):
+            if not part.isdigit():
+                spec = spec[part]
+        n = 1
+        for d in SH.local_shape(tuple(p.shape), spec, sizes):
+            n *= d
+        total += n * p.element_size()
+    return total
+
+
+def _p21_dryruns(core, children):
+    """(a): wait for the children, read their profiles, hold them."""
+    from repro_torch import configs as C
+    from repro_torch.configs.shapes import resolve_shape
+    from repro_torch.core import model_zoo as PZ
+    from repro_torch.launch.extract import default_variant
+
+    out = {}
+    for arch, shape_name, mesh, variant, log_f, t0, proc in children:
+        try:
+            rc = proc.wait(timeout=max(1.0, P21_DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "timeout"
+        log_f.flush()
+        check(rc == 0, f"phase 21 (a): the {arch} dry run on {mesh} ended with {rc}: "
+              + open(log_f.name).read()[-2000:])
+        cfg, shape = C.get_config(arch), resolve_shape(shape_name)
+        zoo = mesh == "zoo"
+        label, sizes, multi = P21_MESHES["pod" if zoo else mesh]
+        variant = variant or default_variant(cfg)
+        prof = core.WorkloadProfile.load(os.path.join(
+            _p21_dir(), "zoo.json" if zoo
+            else f"{cfg.name}__{shape_name}__{label}__{variant}.json"))
+        if zoo:
+            cell = next(c for c in PZ.zoo_cells(archs=(arch,))
+                        if c.shape.name == shape_name)
+            check(prof.meta.get("fingerprint") == PZ.cell_fingerprint(cell)
+                  and prof.meta.get("variant") == variant,
+                  f"phase 21 (a): the zoo cell {cell.name}'s meta {prof.meta}")
+        n = 1
+        for s in sizes.values():
+            n *= s
+        tp = sizes["model"]
+        dp = n // tp
+        per_layer, unembed = train_dot_by_hand(cfg, shape, dp, tp)
+        want_param = param_bytes_by_specs(cfg, sizes, variant, multi)
+        coll = {k: v for k, v in prof.collective_bytes.items() if v}
+        log(f"phase 21 (a): {'the zoo cell ' if zoo else ''}{cfg.name}/{shape_name} "
+            f"@ {label} [{variant}] per device: "
+            f"num_devices {prof.num_devices}, dot_flops {prof.dot_flops:.6e}, flops "
+            f"{prof.flops:.6e}, hbm_bytes {prof.hbm_bytes:.6e}, collective bytes {coll}, "
+            f"pod_collective_bytes {prof.pod_collective_bytes:.6e}, parameter bytes "
+            f"{prof.meta['param_bytes_per_device']:.6e} (the specs' shards {want_param}), "
+            f"peak {prof.peak_memory_bytes:.6e} B, {prof.meta['aten_ops']} ATen operations, "
+            f"{prof.compile_seconds:.1f} s on meta ({time.perf_counter() - t0:.1f} s "
+            "since its child started)")
+        check(prof.num_devices == n and prof.mesh == label,
+              f"phase 21 (a): {arch} profiled on {prof.mesh} x {prof.num_devices}")
+        check(prof.dot_flops == cfg.n_layers * per_layer + unembed,
+              f"phase 21 (a): {arch} dot FLOPs {prof.dot_flops:.6e}, by hand "
+              f"{cfg.n_layers} x {per_layer:.6e} + {unembed:.6e}")
+        check(prof.total_collective_bytes > 0, f"phase 21 (a): {arch} has no collectives")
+        check((prof.pod_collective_bytes > 0) == multi,
+              f"phase 21 (a): {arch} pod-crossing bytes {prof.pod_collective_bytes} "
+              f"on {label}")
+        check(prof.meta["param_bytes_per_device"] == want_param,
+              f"phase 21 (a): {arch} parameter bytes {prof.meta['param_bytes_per_device']} "
+              f"against the specs' shards {want_param}")
+        out[(arch, shape_name)] = prof
+    return out
+
+
+def _p21_joint(torch, core, KC, dev):
+    """(b): the hillclimb launcher with --mesh pod --joint in a child (the
+    fake world owns it; its co-design runs on the card), then holds."""
+    import numpy as np
+    from repro_torch import configs as C
+    from repro_torch.core import codesign as CD
+    from repro_torch.core import constrained as CN
+
+    out_dir = os.path.join(_p21_dir(), "hillclimb")
+    code = ("import json, sys\n"
+            f"sys.path.insert(0, {SRC!r})\n"
+            "from repro_torch.core import kernels_cuda as KC\n"
+            "from repro_torch.launch import hillclimb as HC\n"
+            "KC.reset_launch_counts()\n"
+            f"rc = HC.main(['--arch', {HC_ARCH!r}, '--shape', {HC_SHAPE!r}, "
+            f"'--mode', 'flash', '--mesh', {P21_JOINT_MESH[0]!r}, '--joint', "
+            f"'--grad', '{P21_GRAD}', '--sweep', '{HC_SWEEP_N}', '--device', {dev!r}, "
+            f"'--out', {out_dir!r}])\n"
+            "print(json.dumps({'rc': rc, 'counts': KC.launch_counts()}))\n")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, timeout=900, env=dict(os.environ, PYTHONPATH=SRC))
+    seconds = time.perf_counter() - t0
+    check(res.returncode == 0, f"phase 21 (b): hillclimb --joint failed: "
+          f"{res.stdout[-2000:]}{res.stderr[-3000:]}")
+    tail = json.loads(res.stdout.strip().splitlines()[-1])
+    check(tail["rc"] == 0, f"phase 21 (b): hillclimb returned {tail['rc']}")
+    counts = tail["counts"]
+    check(counts["congruence"] > 0 and counts["default_beta"] > 0,
+          f"phase 21 (b): the joint co-design missed a kernel: {counts}")
+    name = C.get_config(HC_ARCH).name
+    with open(os.path.join(out_dir, f"{name}__{HC_SHAPE}__{P21_JOINT_MESH[1]}__"
+                           "zero1__flash.json")) as f:
+        blob = json.load(f)
+    jd = blob["meta"]["joint_codesign"]
+    prof = core.WorkloadProfile.from_json(blob)
+    prof.meta = {}
+    from repro_torch.launch import hillclimb as HC
+    sweep_line = _hold_sweep(torch, core, HC, dev, prof, blob["meta"]["codesign_sweep"],
+                             "phase 21 (b)")
+    group = [prof] + [core.WorkloadProfile.from_json(p)
+                      for p in blob["meta"]["joint_profiles"]]
+    coll = {p.name: p.collective_bytes for p in group}
+    check(len(group) == 3 and all(p.num_devices == P21_JOINT_MESH[2] for p in group),
+          f"phase 21 (b): the joint group {[(p.name, p.num_devices) for p in group]}")
+    totals = [p.total_collective_bytes for p in group]
+    check(len(set(totals)) == 3, f"phase 21 (b): the variants' collective bytes {coll}")
+    fsdp = next(p for p in group if p.name.endswith("@fsdp"))
+    check(all(fsdp.collective_bytes["all-gather"] > p.collective_bytes["all-gather"]
+              for p in group if p is not fsdp),
+          f"phase 21 (b): fsdp does not add parameter all-gathers: {coll}")
+    seeds = core.MachineBatch.from_models(core.VARIANTS)
+    card = core.joint_codesign([group], seeds, steps=P21_GRAD, device=dev)
+    traj = np.asarray(card.trajectory)
+    check(bool((np.diff(traj, axis=0) <= 1e-12 * np.abs(traj[:-1]) + 1e-15).all()),
+          "phase 21 (b): the joint trajectory rises")
+    bad = blob_diffs(jd, card.to_json())
+    check(not bad, f"phase 21 (b): the launcher's joint result against the same "
+          f"call here: {bad[:5]}")
+    flat = list(group)
+    flat_pb = core.ProfileBatch.from_profiles(flat)
+    gids = np.zeros(len(flat), dtype=np.int64)
+    beta = CD.resolve_beta(flat_pb, seeds, None, 0)[[0]][gids]
+    rescored = _rescore(core, CD, flat, card, beta, lambda agg: CN._hard_weights(agg, gids))
+    err = float(np.max(np.abs(np.asarray(rescored) - np.asarray(card.objective_final))))
+    check(err <= P21_RESCORE, f"phase 21 (b): the NumPy re-score is {err:.3e} off")
+    log(f"phase 21 (b): hillclimb {HC_ARCH} {HC_SHAPE} --mode flash --mesh "
+        f"{P21_JOINT_MESH[0]} --joint "
+        f"--grad {P21_GRAD} in {seconds:.1f} s (child process): collective bytes per "
+        f"device {dict(zip([p.name for p in group], totals))}; best "
+        f"{jd['best_variant']} picks {jd['selection'][jd['best_variant']]}; trajectory "
+        f"{traj[0].min():.6g} -> {traj[-1].min():.6g} never rises; NumPy re-score "
+        f"within {err:.3e}; --sweep {HC_SWEEP_N}: {sweep_line}; launches {counts}")
+    return dict(counts=counts, seconds=seconds)
+
+
+def _p21_nccl(torch, core, KC, dev, profiles):
+    """(c): a real NCCL world of the card(s) in this process: shard_sweep over
+    the variants mesh against the meshless run, and a train step sharded on
+    a 1 x 1 mesh against the unsharded step."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch import configs as C
+    from repro_torch.distributed import ctx as CTX
+    from repro_torch.distributed import place as PL
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.optim import adamw
+    from repro_torch.training.step import init_state, loss_and_grads, make_train_step
+
+    n = torch.cuda.device_count()
+    check(n == 1, f"phase 21 (c) runs one process, so one card; {n} are visible")
+    store = os.path.join(_p21_dir(), "nccl.store")
+    MESH.init_world(P21_BACKEND, init_method=f"file://{store}", rank=0, world_size=n)
+    try:
+        vmesh = MESH.make_variant_mesh()
+        kw = dict(n=P21_SWEEP_N, include_named=core.VARIANTS, num_shards=4,
+                  device=dev)
+        plain = core.shard_sweep(profiles, **kw)
+        KC.reset_launch_counts()
+        split = core.shard_sweep(profiles, mesh=vmesh, **kw)
+        torch.cuda.synchronize()
+        counts = KC.launch_counts()
+        check(split.mesh_axis == f"variants={n} mesh",
+              f"phase 21 (c): mesh_axis {split.mesh_axis!r}")
+        check(counts["sweep_stats"] == split.num_shards,
+              f"phase 21 (c): K4 launches {counts['sweep_stats']} for {split.num_shards} shards")
+        check(split.candidate_indices.tolist() == plain.candidate_indices.tolist(),
+              "phase 21 (c): the survivors differ from the meshless run")
+        check(split.best_fit_map == plain.best_fit_map,
+              "phase 21 (c): best fits differ from the meshless run")
+        check(split.pareto_names() == plain.pareto_names(),
+              "phase 21 (c): the fronts differ from the meshless run")
+        check(bool(np.array_equal(split.result.aggregate, plain.result.aggregate,
+                                  equal_nan=True)),
+              "phase 21 (c): the re-scored survivors differ from the meshless run")
+
+        cfg = C.get_config(HC_ARCH).replace(n_layers=P21_TRAIN_LAYERS,
+                                            compute_dtype="float32")
+        oc = adamw.OptimizerConfig(warmup_steps=1, total_steps=10)
+        step = make_train_step(cfg, oc)
+        gen = torch.Generator(dev).manual_seed(5)
+        batch = {k: torch.randint(0, cfg.vocab_size, (P21_TRAIN_B, P21_TRAIN_S),
+                                  generator=gen, device=dev) for k in ("tokens", "labels")}
+        state = init_state(cfg, oc, device=dev)
+        g_plain = loss_and_grads(state["params"], cfg, batch)[2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m_plain = step(state, batch)
+        loss_plain = float(m_plain["loss"])
+        plain_s = time.perf_counter() - t0
+        del state
+        torch.cuda.empty_cache()
+        mesh = MESH.make_mesh((1, 1), ("data", "model"))
+        sc = SH.ShardingConfig(variant="zero1")
+        state = init_state(cfg, oc, device=dev)
+        PL.shard_state(cfg, state["params"], mesh, sc, state)
+        sb = PL.shard_batch(batch, mesh, sc)
+        with PL.sharded_step(), CTX.use_rules(SH.activation_rules(mesh, sc, "train")):
+            g = loss_and_grads(state["params"], cfg, sb)[2]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = step(state, sb)
+            loss = float(PL.full(m["loss"]))
+            torch.cuda.synchronize()
+        sharded_s = time.perf_counter() - t0
+        scale = max(float(t.abs().max()) for t in g_plain.values())
+        grad_err = max(float((PL.full(g[k]) - g_plain[k]).abs().max())
+                       for k in g_plain) / scale
+        rel_loss = abs(loss - loss_plain) / abs(loss_plain)
+        check(rel_loss <= 1e-6, f"phase 21 (c): sharded loss {loss!r} against "
+              f"unsharded {loss_plain!r} ({rel_loss:.3e} relative)")
+        check(grad_err <= P21_GRAD_TOL, f"phase 21 (c): the sharded gradients are {grad_err:.3e} "
+              "off the unsharded ones (on the largest's scale)")
+        del state, g, g_plain
+        torch.cuda.empty_cache()
+        log(f"phase 21 (c): {P21_BACKEND} world of {n}: shard_sweep gen:64 x {split.num_variants} "
+            f"in {split.num_shards} shards on {split.mesh_axis} equal to the meshless run "
+            f"(survivors, best fits, front, re-scored aggregate bit for bit); "
+            f"{cfg.name} at {P21_TRAIN_LAYERS} layers, B {P21_TRAIN_B} S {P21_TRAIN_S}, "
+            f"f32: sharded step on 1x1 loss {loss!r} against {loss_plain!r} "
+            f"({rel_loss:.3e}), gradients {grad_err:.3e} off; step {sharded_s:.3f} s sharded, "
+            f"{plain_s:.3f} s plain; launches {counts}")
+        return dict(counts=counts)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(torch, core, KC, dev, children, profiles):
+    """Phase 21: (a) the dry runs' per-device profiles, (b) --joint on the
+    pod mesh, (c) the NCCL world."""
+    t_phase = time.perf_counter()
+    _p21_dryruns(core, children)
+    t_a = time.perf_counter() - t_phase
+    b = _p21_joint(torch, core, KC, dev)
+    c = _p21_nccl(torch, core, KC, dev, profiles)
+    counts = {k: b["counts"][k] + c["counts"][k] for k in b["counts"]}
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 21: {seconds:.1f} s ((a) waited {t_a:.1f} s for the dry runs, "
+        f"(b) {b['seconds']:.1f} s); launches {counts}")
+    return dict(counts=counts, seconds=seconds)
 
 
 def main() -> int:
@@ -3840,6 +4236,14 @@ def main() -> int:
     dev = "cuda"
     card = nvidia_smi()
     log(f"card: {card}")
+    children = []
+    try:
+        return _main(torch, core, _build, KC, dev, card, t_script, children)
+    finally:
+        stop_children(children)
+
+
+def _main(torch, core, _build, KC, dev, card, t_script, children) -> int:
     t0 = time.perf_counter()
     _build.lib()
     log(f"phase 1: built {_build.build_info['path']} in "
@@ -3962,7 +4366,12 @@ def main() -> int:
                     "S": TRAIN_S, "step_s": p19["step_s"],
                     "decoder_tokens_per_s": p19["tokens_per_s"]}))
     torch.cuda.empty_cache()
+    # phase 21 (a)'s dry runs on the host's cores from here on: phase 20's
+    # extraction is on meta, and the timings of phases 1-19 come first
+    children.extend(start_dryrun_children())
     p20 = phase_hillclimb(torch, core, KC, dev)
+    torch.cuda.empty_cache()
+    p21 = phase_sharded(torch, core, KC, dev, children, p3["profiles"])
 
     kernels = []
     for name in REPLACES:
@@ -3970,7 +4379,8 @@ def main() -> int:
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
             launches=(p3["counts"][name] + p4["counts"][name]
                       + p12["counts"][name] + p17["counts"][name]
-                      + p18["counts"][name] + p20["counts"][name]),
+                      + p18["counts"][name] + p20["counts"][name]
+                      + p21["counts"][name]),
             max_abs_err=errs[name], ms=rows[name]["ms"],
             plain_ms=rows[name]["plain_ms"], bound_ms=rows[name]["bound_ms"],
             bound_by=rows[name]["bound_by"], library_ms=None))

@@ -82,9 +82,14 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore(directory: str, tree_like: Mapping[str, Any],
-            step: Optional[int] = None
-            ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
-    """Restore the arrays saved under the keys of ``tree_like``."""
+            step: Optional[int] = None, shardings: Optional[Mapping[str, Any]] = None
+            ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Restore the arrays saved under the keys of ``tree_like``.
+
+    ``shardings``: optional mapping of the same keys to ``(mesh, spec)``
+    (a ``DeviceMesh`` and a ``distributed.sharding`` spec) -- each leaf is
+    then a DTensor on that mesh, every rank keeping its own shard of the
+    saved whole array, whatever mesh wrote it (an elastic reshard)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -98,6 +103,12 @@ def restore(directory: str, tree_like: Mapping[str, Any],
                          f"{sorted(tree_like)}")
     restored = {key: np.load(os.path.join(path, files[key]))
                 for key in sorted(tree_like)}
+    if shardings is not None:
+        from repro_torch.distributed.place import distribute
+
+        restored = {key: distribute(torch.from_numpy(arr), shardings[key][1],
+                                    shardings[key][0])
+                    for key, arr in restored.items()}
     return restored, manifest["extra"] | {"step": manifest["step"]}
 
 

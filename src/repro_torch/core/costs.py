@@ -48,9 +48,25 @@ operations it decomposes into, in any autograd mode):
                     (``meta``, the CPU) a tracker of live storages: the
                     arguments plus the largest total of the storages the
                     step had created and not yet freed
-collectives         zero: the port has no distributed path (``num_devices``
-                    1)
+collectives         per kind (all-gather, all-reduce, reduce-scatter,
+                    all-to-all), the bytes of each collective's first
+                    operand on this device (the JAX package's convention),
+                    also into ``hbm_bytes`` (the payload passes HBM) and,
+                    when its group's ranks span more than one pod
+                    (``rank // devices_per_pod``), into
+                    ``pod_collective_bytes``; zero on one device
 ==================  ======================================================
+
+Sharded steps (``launch.extract.run_cell`` with a mesh): the arguments are
+DTensors (``torch.distributed.tensor``).  The counter lets DTensor run each
+DTensor operation and counts what DTensor then issues on this device --
+the local operations at local shapes and the functional collectives
+(``_c10d_functional.*``, DTensor's ``shard_dim_alltoall``) -- so every
+count is per device (``num_devices`` the mesh's size).  The operations
+DTensor's sharding propagation runs on fake tensors at the global shapes
+to learn output shapes are not the step's work and are not counted.  The
+collectives' group names resolve to global ranks through the process
+group, a fake one in the dry run (``launch.mesh.fake_world``).
 """
 
 from __future__ import annotations
@@ -62,6 +78,7 @@ import weakref
 from typing import Dict, Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
@@ -186,6 +203,29 @@ _TRANSCENDENTAL = frozenset({
     _aten._softmax, _aten._log_softmax})
 
 
+#: Collective operations (``torch.distributed``'s functional collectives,
+#: which DTensor issues, and DTensor's own all-to-all) by kind.
+_COLLECTIVES = {
+    "all_gather_into_tensor": "all-gather",
+    "all_reduce": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
+}
+#: Their bookkeeping, which moves nothing.
+_COLLECTIVE_PLUMBING = frozenset({"wait_tensor", "_wrap_tensor_autograd"})
+_COLLECTIVE_NAMESPACES = frozenset({"_c10d_functional", "c10d_functional", "_dtensor"})
+
+
+def _group_ranks(name: str):
+    """The global ranks of the process group ``name`` (a functional
+    collective's group argument)."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    return tuple(dist.get_process_group_ranks(_resolve_process_group(name)))
+
+
 @dataclasses.dataclass
 class OpStats:
     """What ``OpCounter`` counted (the module docstring's rules)."""
@@ -200,17 +240,29 @@ class OpStats:
     argument_bytes: float = 0.0
     output_bytes: float = 0.0
     peak_memory_bytes: float = 0.0
+    collective_bytes: Dict[str, float] = dataclasses.field(
+        default_factory=lambda: {k: 0.0 for k in COLLECTIVE_KINDS})
+    collective_counts: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: {k: 0 for k in COLLECTIVE_KINDS})
+    pod_collective_bytes: float = 0.0
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (this device's tensor); any other tensor."""
+    local = getattr(t, "_local_tensor", None)
+    return local if isinstance(local, torch.Tensor) else t
 
 
 def _tensors(tree):
-    """The tensors of a tree; a module stands for its parameters and buffers."""
+    """The tensors of a tree, DTensors as their local shards; a module
+    stands for its parameters and buffers."""
     out = []
     for leaf in tree_flatten(tree)[0]:
         if isinstance(leaf, torch.Tensor):
-            out.append(leaf)
+            out.append(_local(leaf))
         elif isinstance(leaf, torch.nn.Module):
-            out.extend(leaf.parameters())
-            out.extend(leaf.buffers())
+            out.extend(_local(t) for t in leaf.parameters())
+            out.extend(_local(t) for t in leaf.buffers())
     return out
 
 
@@ -269,15 +321,29 @@ class OpCounter(TorchDispatchMode):
     counted as created.  ``track_memory`` follows live storages (off on the
     card, where the allocator's peak is read instead)."""
 
-    def __init__(self, args=(), *, track_memory: bool = True):
+    def __init__(self, args=(), *, track_memory: bool = True,
+                 devices_per_pod: int = 0):
         super().__init__()
         self.stats = OpStats()
         keys = {_storage_key(t) for t in _tensors(args)}
         self.stats.argument_bytes = float(storage_bytes(args))
         self._live = _LiveStorages(keys) if track_memory else None
+        self.devices_per_pod = int(devices_per_pod)
+        self._ranks: Dict[str, tuple] = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if types and any(_is_wrapper(t) for t in types):
+            # a DTensor operation: let DTensor run it, and count the local
+            # operations and collectives it issues as they come back here
+            return NotImplemented
+        if any(_is_fake(t) for t in tree_flatten((args, kwargs))[0]):
+            # sharding propagation's shadow of an op at its global shape
+            return func(*args, **kwargs)
+        if func.namespace in _COLLECTIVE_NAMESPACES:
+            out = func(*args, **kwargs)
+            self._collective(func, args, out)
+            return out
         packet = func.overloadpacket
         if packet not in flop_registry:
             with self:
@@ -287,6 +353,34 @@ class OpCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         self._count(func, packet, args, kwargs, out)
         return out
+
+    def _collective(self, func, args, out) -> None:
+        """A collective: its first operand's bytes (this device's), by kind,
+        into ``hbm_bytes`` too, and into ``pod_collective_bytes`` when its
+        group spans pods."""
+        name = func.overloadpacket.__name__
+        if name in _COLLECTIVE_PLUMBING:
+            return
+        kind = _COLLECTIVES.get(name)
+        if kind is None:
+            raise NotImplementedError(f"op counter: unknown collective {func}")
+        if self._live is not None:
+            for t in _tensors(out):
+                self._live.see(t)
+        ins = [t for t in tree_flatten(args[0])[0] if isinstance(t, torch.Tensor)]
+        nbytes = float(sum(_nbytes(t) for t in ins))
+        st = self.stats
+        st.ops += 1
+        st.collective_bytes[kind] += nbytes
+        st.collective_counts[kind] += 1
+        st.hbm_bytes += nbytes
+        st.bytes_accessed += nbytes + sum(_nbytes(t) for t in _tensors(out))
+        if self.devices_per_pod > 0:
+            group = next(a for a in reversed(args) if isinstance(a, str))
+            if group not in self._ranks:
+                self._ranks[group] = _group_ranks(group)
+            if len({r // self.devices_per_pod for r in self._ranks[group]}) > 1:
+                st.pod_collective_bytes += nbytes
 
     def _count(self, func, packet, args, kwargs, out) -> None:
         outs = _tensors(out)
@@ -344,25 +438,41 @@ class OpCounter(TorchDispatchMode):
         return st
 
 
+def _is_wrapper(t) -> bool:
+    """True for the DTensor class (a dispatch ``types`` entry)."""
+    return t.__name__ == "DTensor" and t.__module__.startswith("torch.distributed.tensor")
+
+
+def _is_fake(t) -> bool:
+    return isinstance(t, FakeTensor)
+
+
 def profile_from_counts(name: str, stats: OpStats, *, arch: str = "",
                         shape: str = "", mesh: str = "",
-                        step_kind: str = "train", model_flops: float = 0.0,
+                        step_kind: str = "train", num_devices: int = 1,
+                        devices_per_pod: int = 0, model_flops: float = 0.0,
                         tokens: int = 0, params: float = 0.0,
                         params_active: float = 0.0,
                         compile_seconds: float = 0.0,
                         meta: Optional[dict] = None) -> WorkloadProfile:
-    """A ``WorkloadProfile`` from an ``OpCounter``'s counts: one device, no
-    collectives (the counterpart of the JAX package's
-    ``profile_from_compiled``)."""
+    """A ``WorkloadProfile`` from an ``OpCounter``'s counts, per device on
+    ``num_devices`` (the counterpart of the JAX package's
+    ``profile_from_compiled``); ``devices_per_pod`` is recorded in
+    ``meta`` as the counter applied it to ``pod_collective_bytes``."""
+    meta = dict(meta or {})
+    if devices_per_pod:
+        meta.setdefault("devices_per_pod", int(devices_per_pod))
     return WorkloadProfile(
         name=name, arch=arch, shape=shape, mesh=mesh, step_kind=step_kind,
-        num_devices=1,
+        num_devices=int(num_devices),
         flops=float(stats.flops),
         bytes_accessed=float(stats.bytes_accessed),
         transcendentals=float(stats.transcendentals),
-        collective_bytes={k: 0.0 for k in COLLECTIVE_KINDS},
-        collective_counts={k: 0 for k in COLLECTIVE_KINDS},
-        pod_collective_bytes=0.0,
+        collective_bytes={k: float(stats.collective_bytes.get(k, 0.0))
+                          for k in COLLECTIVE_KINDS},
+        collective_counts={k: int(stats.collective_counts.get(k, 0))
+                           for k in COLLECTIVE_KINDS},
+        pod_collective_bytes=float(stats.pod_collective_bytes),
         dot_flops=float(stats.dot_flops),
         dot_count=int(stats.dot_count),
         hbm_bytes=float(stats.hbm_bytes),
@@ -375,5 +485,5 @@ def profile_from_counts(name: str, stats: OpStats, *, arch: str = "",
         params=params,
         params_active=params_active,
         compile_seconds=compile_seconds,
-        meta=dict(meta or {}),
+        meta=meta,
     )

@@ -20,8 +20,14 @@ the port's ``meta`` records ``torch_version``, ``extractor`` and
     ``build/repro_torch/zoo/``, written by ``python -m
     repro_torch.core.model_zoo``.
 
-Extraction runs on ``device``: the card by default, the CPU, or ``meta``
--- counts from shapes alone, which is what the caches hold (the card's
+As in the JAX package, smoke cells are profiled as one device and full
+cells per device on the production pod mesh (``pod16x16``, 16 x 16) under
+``launch.extract.default_variant``, with their collectives.  A pod cell
+runs on ``meta`` in a child process that owns the fake process group of
+the dry run (``launch.mesh.fake_world``); ``extract_profile(...,
+mesh="1x1")`` profiles a full cell as one device instead.  A one-device
+cell runs on ``device``: the card by default, the CPU, or ``meta`` --
+counts from shapes alone, which is what the caches hold (the card's
 allocator peak is the card's, not the cell's, and most full cells do not
 fit on one card) and what the CLI extracts with by default, as the dry
 run does.  A real run's counts equal the ``meta`` ones.  The
@@ -42,6 +48,9 @@ import hashlib
 import json
 import math
 import os
+import subprocess
+import sys
+import tempfile
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -74,6 +83,10 @@ FULL_CACHE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))),
     "build", "repro_torch", "zoo")
+
+#: The labels of the two extraction meshes: one device, and the JAX
+#: package's production pod (16 x 16) for full cells.
+ONE_DEVICE, POD = "1x1", "pod16x16"
 
 #: Volatile meta fields dropped by canonicalization (wall-clock only).
 _VOLATILE_META = ("probe_seconds", "extract_seconds")
@@ -174,14 +187,29 @@ def default_cache_dir(smoke: bool) -> str:
 
 
 def extract_profile(cell: ZooCell, *, device="cuda", verbose: bool = False,
-                    model=None) -> WorkloadProfile:
-    """Run one zoo cell's step under the op counter on ``device`` and build
-    its profile.  No depth probes (``launch.extract``): every layer runs.
-    ``model`` reuses weights already on ``device`` (an inference cell)."""
+                    model=None, mesh: Optional[str] = None) -> WorkloadProfile:
+    """Run one zoo cell's step under the op counter and build its profile.
+    No depth probes (``launch.extract``): every layer runs.  ``mesh`` is
+    ``"1x1"`` (one device, on ``device``; the default for smoke cells) or
+    ``"pod16x16"`` (per device on the pod mesh under ``default_variant``,
+    on ``meta`` in a child process; the default for full cells).
+    ``model`` reuses weights already on ``device`` (a one-device inference
+    cell)."""
     from repro_torch.launch import extract as EX
 
-    profile = EX.run_cell(cell.config, cell.shape, None, device=device,
-                          verbose=verbose, model=model)
+    mesh = mesh or (ONE_DEVICE if cell.smoke else POD)
+    if mesh == POD:
+        if str(device) != "meta" or model is not None:
+            raise ValueError(
+                f"{cell.name}: the pod mesh's placeholder devices exist on "
+                "meta only (device='meta', no model); mesh='1x1' profiles "
+                "the cell as one device")
+        profile = _extract_on_pod(cell, verbose)
+    elif mesh == ONE_DEVICE:
+        profile = EX.run_cell(cell.config, cell.shape, None, device=device,
+                              verbose=verbose, model=model)
+    else:
+        raise ValueError(f"mesh {mesh!r}: give {ONE_DEVICE!r} or {POD!r}")
     profile.meta.update(
         scenario=cell.scenario,
         suite="zoo-smoke" if cell.smoke else "zoo",
@@ -190,6 +218,45 @@ def extract_profile(cell: ZooCell, *, device="cuda", verbose: bool = False,
         extract_seconds=profile.compile_seconds,
     )
     return profile
+
+
+def _extract_on_pod(cell: ZooCell, verbose: bool) -> WorkloadProfile:
+    """``cell``'s profile on the pod mesh, from a child process: a process
+    has one default process group, and the fake world takes it."""
+    src = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (src, env.get("PYTHONPATH")) if p)
+    code = ("import sys\n"
+            "from repro_torch.core import model_zoo as PZ\n"
+            "PZ._pod_child(*sys.argv[1:])\n")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "profile.json")
+        res = subprocess.run(
+            [sys.executable, "-c", code, cell.arch, cell.scenario,
+             cell.shape.name, str(int(cell.smoke)), str(int(verbose)), path],
+            env=env, stdout=None if verbose else subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"{cell.name} on {POD} failed in its child "
+                               f"process: {(res.stdout or '')[-3000:]}")
+        return WorkloadProfile.load(path)
+
+
+def _pod_child(arch: str, scenario: str, shape_name: str, smoke: str,
+               verbose: str, path: str) -> None:
+    """The child of ``_extract_on_pod``: the fake world, the pod mesh, the
+    cell's step under the op counter, its profile saved to ``path``."""
+    from repro_torch.launch import extract as EX
+    from repro_torch.launch import mesh as MESH
+
+    cell = next(c for c in zoo_cells((arch,), (scenario,), smoke=smoke == "1")
+                if c.shape.name == shape_name)
+    MESH.fake_world(MESH.DEVICES_PER_POD)
+    EX.run_cell(cell.config, cell.shape, None, device="meta",
+                verbose=verbose == "1",
+                mesh=MESH.make_production_mesh(multi_pod=False),
+                mesh_label=POD).save(path)
 
 
 def _regen_command(smoke: bool) -> str:
@@ -403,9 +470,10 @@ def main(argv=None) -> int:
       PYTHONPATH=src python -m repro_torch.core.model_zoo --smoke --device cpu
       PYTHONPATH=src python -m repro_torch.core.model_zoo --arch chatglm3-6b
 
-    Cells are extracted on ``--extract-device`` (``meta`` by default: the
-    dry run's counts; ``cuda`` or ``cpu`` run them for real); the
-    calibration's batched side runs on ``--device`` (the card unless
+    Smoke cells are extracted as one device on ``--extract-device``
+    (``meta`` by default: the dry run's counts; ``cuda`` or ``cpu`` run
+    them for real), full cells per device on the pod mesh, on ``meta``;
+    the calibration's batched side runs on ``--device`` (the card unless
     ``cpu`` is asked for)."""
     import argparse
 
@@ -425,8 +493,9 @@ def main(argv=None) -> int:
     ap.add_argument("--max-cells", type=int, default=None, metavar="N",
                     help="extract at most N cells")
     ap.add_argument("--extract-device", default="meta",
-                    help="device the cells run on: meta (the dry run, "
-                         "default) | cuda | cpu")
+                    help="device the smoke cells run on: meta (the dry "
+                         "run, default) | cuda | cpu; full cells run on "
+                         "the pod mesh, on meta")
     ap.add_argument("--device", default="cuda",
                     help="device of the calibration's batched step times")
     ap.add_argument("--out", default=None,

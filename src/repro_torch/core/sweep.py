@@ -1398,6 +1398,45 @@ def _sweep_signature(pop_tag: str, v: int, num_shards: int, backend_name: str,
     return h.hexdigest()
 
 
+def _mesh_stats(be, pb: ProfileBatch, mb: MachineBatch, beta_vec, mesh,
+                timing_model: str, clamp: bool):
+    """``be.sharded_stats`` of one chunk split over the ranks of the 1-D
+    ``mesh``: rank r reduces variants [r*w, (r+1)*w) of the chunk (w =
+    ceil(V / ranks)) on its device, then the ranks' (mean, min, argmin)
+    rows are all-gathered over the mesh and merged in rank order."""
+    import torch
+    import torch.distributed as dist
+
+    n, r = mesh.size(), mesh.get_local_rank(0)
+    v = len(mb)
+    w = -(-v // n)
+    lo, hi = min(r * w, v), min((r + 1) * w, v)
+    a = len(pb)
+    row = np.full(w + 2 * a, np.inf)
+    row[w + a:] = 0.0
+    if hi > lo:
+        mean, mins, idx = be.sharded_stats(pb.arrays(), mb.slice(lo, hi).arrays(),
+                                           beta_vec, timing_model=timing_model,
+                                           clamp=clamp)
+        row[:hi - lo] = mean
+        row[w:w + a] = mins
+        row[w + a:] = idx + lo
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device("cpu")
+    mine = torch.as_tensor(row, dtype=torch.float64, device=dev)
+    rows = [torch.empty_like(mine) for _ in range(n)]
+    dist.all_gather(rows, mine, group=mesh.get_group(0))
+    rows = np.stack([t.cpu().numpy() for t in rows])
+    agg_mean = rows[:, :w].reshape(-1)[:v]
+    app_min = np.full(a, np.inf)
+    app_idx = np.zeros(a, dtype=np.int64)
+    for k in range(n):       # rank order is variant order: strict < keeps
+        better = rows[k, w:w + a] < app_min     # the first argmin
+        app_min = np.where(better, rows[k, w:w + a], app_min)
+        app_idx = np.where(better, rows[k, w + a:].astype(np.int64), app_idx)
+    return agg_mean, app_min, app_idx
+
+
 def shard_sweep(
     profiles,
     *,
@@ -1421,6 +1460,7 @@ def shard_sweep(
     checkpoint_dir: Optional[str] = None,
     resume: bool = False,
     checkpoint_keep: int = 2,
+    mesh=None,
 ) -> ShardedSweepResult:
     """Sharded ``run_sweep`` for populations that outgrow one pass.
 
@@ -1433,6 +1473,15 @@ def shard_sweep(
     suite means and per-app min/argmin, so only O(V_chunk) + O(A) values
     come back to the host).  A backend without that pass is reduced on the
     host from a full ``congruence`` result.
+
+    **Mesh** (``mesh=``, a 1-D ``DeviceMesh`` such as
+    ``repro_torch.launch.mesh.make_variant_mesh()``, one card a rank): each
+    chunk's variants are split over the mesh's ranks, each rank runs the
+    backend's statistics pass (K4) on its slice on its own card, and the
+    per-rank rows are all-gathered and merged in rank order, which is
+    variant order (strict ``<``: the first argmin wins), as the JAX
+    package's ``shard_map`` over its variant mesh; ``mesh_axis`` then reads
+    ``"variants=N mesh"``.  Every rank gets the same result.
 
     The host then pre-filters each shard to its local Pareto candidates --
     every globally non-dominated point is locally non-dominated, so the
@@ -1496,9 +1545,15 @@ def shard_sweep(
     beta_vec = _resolve_beta(pb, beta, beta_machine, include_named, space, be)
 
     on_device = type(be).sharded_stats is not K.Backend.sharded_stats
-    mesh_axis = str(be.device) if on_device else "host-chunked"
+    if mesh is not None and not on_device:
+        raise ValueError(f"backend {be.name!r} has no statistics pass to split "
+                         "over a mesh")
+    if mesh is not None:
+        mesh_axis = f"{mesh.mesh_dim_names[0]}={mesh.size()} mesh"
+    else:
+        mesh_axis = str(be.device) if on_device else "host-chunked"
 
-    default_shards = 1
+    default_shards = mesh.size() if mesh is not None else 1
     if src is not None:
         # streaming exists to bound memory: never let one shard regrow to V
         default_shards = -(-v // STREAM_SHARD_VARIANTS)
@@ -1548,8 +1603,11 @@ def shard_sweep(
         if s < start_shard:
             continue
         mb = shard_batch(lo, hi)
-        stats = be.sharded_stats(pb.arrays(), mb.arrays(), beta_vec,
-                                 timing_model=timing_model, clamp=clamp)
+        if mesh is not None:
+            stats = _mesh_stats(be, pb, mb, beta_vec, mesh, timing_model, clamp)
+        else:
+            stats = be.sharded_stats(pb.arrays(), mb.arrays(), beta_vec,
+                                     timing_model=timing_model, clamp=clamp)
         if stats is None:
             out = be.congruence(pb.arrays(), mb.arrays(), beta_vec,
                                 timing_model=timing_model, clamp=clamp)

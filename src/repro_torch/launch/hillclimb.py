@@ -27,14 +27,25 @@ the dry run, nothing allocated) with the plain attention and the plain scan
 through ``ctypes`` (``core/_build.py``), which the op counter's dispatch
 mode does not see: under ``attn_impl="pallas"`` the fitted S^2 term would
 vanish and the substitution would only add bytes, so such a config is
-refused.  The profile is the whole model on one device (``n_dev`` 1), so
-there is no ``--mesh``, no ``--variant`` and no ``--sp`` (which the JAX
-launcher parses and never reads); ``--joint``, which profiles the
-cell under every sharding variant, waits for the multi-device layer.
+refused.
+
+``--mesh pod`` (16 x 16, the default, as in the JAX launcher) or
+``multipod`` (2 x 16 x 16), the production meshes, profile the cell per
+device with its collectives under ``--variant`` (default
+``default_variant``) on ``meta`` in a fake process group
+(``launch.mesh.fake_world``), the probes too, and the kernel's q/k/v/o
+traffic is divided over the mesh's devices, as there; ``--mesh AxB`` /
+``AxBxC`` takes a small mesh of that shape (``("data", "model")`` /
+``("pod", "data", "model")``, B x C devices a pod), and ``--mesh 1x1``
+profiles the whole model as one device (on any ``--extract-device``).
+``--joint`` (with ``--grad``) profiles the cell under the other sharding
+variants too and hands the group to the joint (machine, sharding-variant)
+descent; it needs a mesh.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.hillclimb --arch chatglm3-6b \\
       --shape train_4k [--moe-impl capacity] [--out DIR] \\
+      [--mesh pod|multipod|1x1] [--variant fsdp] [--joint] \\
       [--sweep N [--backend cuda|torch]] [--grad STEPS] [--device cpu]
 
 Co-design modes (after the kernel substitution), on ``--device`` (the card
@@ -84,7 +95,9 @@ from repro_torch.configs.shapes import ShapeSpec, resolve_shape
 from repro_torch.core import machine as M
 from repro_torch.core import roofline as R
 from repro_torch.core.kernels_xp import DEFAULT_DEVICE
-from repro_torch.launch.extract import MESH_LABEL, run_cell
+from repro_torch.distributed.sharding import SHARDING_VARIANTS
+from repro_torch.launch import mesh as MESH
+from repro_torch.launch.extract import MESH_LABEL, default_variant, run_cell
 from repro_torch.models.config import Family
 
 DEFAULT_OUT = os.path.join(
@@ -94,10 +107,9 @@ DEFAULT_OUT = os.path.join(
 #: Where the probes and the baseline run unless told otherwise: the dry run.
 EXTRACT_DEVICE = "meta"
 
-JOINT_REFUSAL = (
-    "--joint profiles the cell under every sharding variant (tp/zero1/fsdp); "
-    "the port profiles one device with no sharding variants, so --joint "
-    "waits for the multi-device layer (distributed/*)")
+#: --mesh's names for the production meshes, and their profile labels.
+PRODUCTION_MESHES = {"pod": ("pod16x16", (16, 16)),
+                     "multipod": ("pods2x16x16", (2, 16, 16))}
 
 
 def _probe_cfg(cfg, depth):
@@ -112,11 +124,38 @@ def _probe_cfg(cfg, depth):
     return c
 
 
+def cell_mesh(name: str):
+    """--mesh ``name`` -> (label, ``DeviceMesh``, multi_pod, devices a pod)
+    in the fake world, or None for ``1x1``."""
+    if name == MESH_LABEL:
+        return None
+    label, shape = PRODUCTION_MESHES.get(name, (name, None))
+    if shape is None:
+        shape = tuple(int(d) for d in name.split("x"))
+    if len(shape) not in (2, 3):
+        raise ValueError(f"--mesh {name!r}: give pod, multipod, AxB or AxBxC")
+    multi = len(shape) == 3
+    axes = ("pod", "data", "model") if multi else ("data", "model")
+    n = int(np.prod(shape))
+    MESH.fake_world(n)
+    dpp = int(np.prod(shape[1:])) if multi else 0
+    return label, MESH.make_mesh(shape, axes), multi, dpp
+
+
+def _run(cfg, shape, device, where=None, variant=None):
+    """``run_cell`` on one device, or on ``where`` (``cell_mesh``'s)."""
+    if where is None:
+        return run_cell(cfg, shape, device=device)
+    label, mesh, multi, dpp = where
+    return run_cell(cfg, shape, device=device, mesh=mesh, mesh_label=label,
+                    variant=variant, multi_pod=multi, devices_per_pod=dpp)
+
+
 def _probe_hbm(cfg, shape, seq_len: int, batch: int, state_dim: int = 0, *,
-               device=EXTRACT_DEVICE) -> float:
+               device=EXTRACT_DEVICE, where=None, variant=None) -> float:
     """``hbm_bytes`` of the depth-2 probe at (``seq_len``, ``batch``) and,
-    for the SSM, ``state_dim``.  A config whose attention or scan runs as
-    a kernel is refused (module docstring)."""
+    for the SSM, ``state_dim`` (per device on ``where``).  A config whose
+    attention or scan runs as a kernel is refused (module docstring)."""
     if cfg.attn_impl != "xla":
         raise ValueError(
             f"{cfg.name}: attn_impl={cfg.attn_impl!r}; the substitution "
@@ -128,14 +167,16 @@ def _probe_hbm(cfg, shape, seq_len: int, batch: int, state_dim: int = 0, *,
     if state_dim and pcfg.ssm is not None:
         pcfg = pcfg.replace(
             ssm=dataclasses.replace(pcfg.ssm, state_dim=state_dim))
-    return run_cell(pcfg, pshape, device=device).hbm_bytes
+    return _run(pcfg, pshape, device, where, variant).hbm_bytes
 
 
-def quadratic_attention_bytes(cfg, shape, *, device=EXTRACT_DEVICE) -> float:
+def quadratic_attention_bytes(cfg, shape, *, device=EXTRACT_DEVICE, where=None,
+                              variant=None) -> float:
     """q*S^2 for the 2-layer probe: measured score-related HBM traffic."""
     S, B = shape.seq_len, shape.global_batch
     ss = np.array([S, S // 2, S // 4], dtype=np.float64)
-    hs = np.array([_probe_hbm(cfg, shape, int(s), B, device=device)
+    hs = np.array([_probe_hbm(cfg, shape, int(s), B, device=device, where=where,
+                              variant=variant)
                    for s in ss])
     coeffs = np.polyfit(ss, hs, 2)  # [q, a, c]
     q = max(coeffs[0], 0.0)
@@ -153,14 +194,16 @@ def flash_kernel_bytes_per_layer(cfg, shape, n_dev: int = 1) -> float:
     return total / n_dev
 
 
-def scan_state_bytes(cfg, shape, *, device=EXTRACT_DEVICE) -> float:
+def scan_state_bytes(cfg, shape, *, device=EXTRACT_DEVICE, where=None,
+                     variant=None) -> float:
     """Measured HBM traffic proportional to the SSM state dim N for the
     2-layer probe: the dA/dBx/h buffers the selective-scan kernel keeps on
     chip, and the B / C projections, which scale with N too."""
     N = cfg.ssm.state_dim
     S, B = shape.seq_len, shape.global_batch
-    h_full = _probe_hbm(cfg, shape, S, B, state_dim=N, device=device)
-    h_half = _probe_hbm(cfg, shape, S, B, state_dim=N // 2, device=device)
+    kw = dict(device=device, where=where, variant=variant)
+    h_full = _probe_hbm(cfg, shape, S, B, state_dim=N, **kw)
+    h_half = _probe_hbm(cfg, shape, S, B, state_dim=N // 2, **kw)
     per_n = (h_full - h_half) / (N - N // 2)
     return max(per_n * N, 0.0)
 
@@ -290,8 +333,7 @@ def codesign_joint(profile_group, steps: int, lr: float = 0.1,
                    device=DEFAULT_DEVICE) -> dict:
     """Joint (machine, sharding-variant) co-design over one app's group of
     sharding-variant profiles (``repro_torch.core.constrained.joint_codesign``,
-    alternation mode), optionally under the same budgets.  The CLI cannot
-    build such a group yet (``JOINT_REFUSAL``)."""
+    alternation mode), optionally under the same budgets."""
     from repro_torch.core.constrained import joint_codesign
 
     res = joint_codesign([profile_group], _seeds(), steps=steps, lr=lr,
@@ -463,6 +505,11 @@ def main(argv=None) -> int:
     ap.add_argument("--mode", choices=("flash", "scan"), default="flash")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config for --arch")
+    ap.add_argument("--mesh", default="pod",
+                    help="pod (default) | multipod | AxB | AxBxC: profile per "
+                         "device on that mesh (meta); 1x1: one device")
+    ap.add_argument("--variant", choices=SHARDING_VARIANTS, default=None,
+                    help="sharding variant on a mesh (default per arch)")
     ap.add_argument("--extract-device", default=EXTRACT_DEVICE,
                     help="device the baseline and the probes run on: meta "
                          "(the dry run, default) | cuda | cpu")
@@ -498,8 +545,9 @@ def main(argv=None) -> int:
                     help="relax ici_links continuously during --grad and "
                          "round with repair (requires a budget)")
     ap.add_argument("--joint", action="store_true",
-                    help="joint (machine, sharding-variant) descent; not "
-                         "available: it waits for the multi-device layer")
+                    help="joint (machine, sharding-variant) descent: "
+                         "profile every sharding variant on --mesh and let "
+                         "--grad choose per machine variant")
     ap.add_argument("--budget-sweep", default=None, metavar="LO:HI:N",
                     help="trace the feasibility frontier J*(budget) over N "
                          "area budgets from LO to HI (warm-started "
@@ -535,8 +583,15 @@ def main(argv=None) -> int:
     # inside get_backend() after minutes of extraction.
     from repro_torch.core.kernels_xp import validate_backend_arg
     validate_backend_arg(ap, args.backend)
-    if args.joint:
-        ap.error(JOINT_REFUSAL)
+    if args.joint and args.mesh == MESH_LABEL:
+        ap.error("--joint profiles the cell under every sharding variant; "
+                 "give it a mesh (--mesh pod|multipod|AxB|AxBxC)")
+    if args.mesh == MESH_LABEL and args.variant:
+        ap.error("--variant shards the cell over a mesh; give one "
+                 "(--mesh pod|multipod|AxB|AxBxC)")
+    if args.mesh != MESH_LABEL and args.extract_device != "meta":
+        ap.error("a mesh's placeholder devices exist on meta only "
+                 "(--extract-device meta, or --mesh 1x1)")
     budgets = parse_budget_sweep(ap, args.budget_sweep)
     envelope = parse_area_envelope(ap, args.area_envelope)
     validate_codesign_args(ap, args)
@@ -546,34 +601,40 @@ def main(argv=None) -> int:
         cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, impl=args.moe_impl))
     shape = resolve_shape(args.shape)  # assigned SHAPES or a zoo-grid shape
     tag = args.tag or args.mode
-
     if args.mode == "flash" and attention_layers(cfg) == 0:
         print("arch is attention-free; flash substitution not applicable")
         return 1
     if args.mode == "scan" and cfg.ssm is None:
         print("arch has no SSM; scan substitution not applicable")
         return 1
+    try:
+        where = cell_mesh(args.mesh)
+    except ValueError as exc:
+        ap.error(str(exc))
+    variant = (args.variant or default_variant(cfg)) if where else None
+    n_dev = where[1].size() if where else 1
 
     # 1. baseline cell -- the pre-substitution profile
-    profile = run_cell(cfg, shape, device=args.extract_device)
+    profile = _run(cfg, shape, args.extract_device, where, variant)
     before = R.analyze(profile, M.TPU_V5E)
     print("before:", before.one_liner())
 
     # 2. measured traffic isolation + kernel substitution
     t0 = time.time()
     if args.mode == "flash":
-        quad2 = quadratic_attention_bytes(cfg, shape,
-                                          device=args.extract_device)
+        quad2 = quadratic_attention_bytes(cfg, shape, device=args.extract_device,
+                                          where=where, variant=variant)
         L_att = attention_layers(cfg)
         per_layer = quad2 / 2.0
         removed = per_layer * L_att
-        added = flash_kernel_bytes_per_layer(cfg, shape, 1) * L_att
+        added = flash_kernel_bytes_per_layer(cfg, shape, n_dev) * L_att
         n_layers = L_att
     else:
-        per2 = scan_state_bytes(cfg, shape, device=args.extract_device)
+        per2 = scan_state_bytes(cfg, shape, device=args.extract_device,
+                                where=where, variant=variant)
         per_layer = per2 / 2.0
         removed = per_layer * cfg.n_layers
-        added = scan_kernel_bytes_per_layer(cfg, shape, 1) * cfg.n_layers
+        added = scan_kernel_bytes_per_layer(cfg, shape, n_dev) * cfg.n_layers
         n_layers = cfg.n_layers
     new_hbm = max(profile.hbm_bytes - removed + added, added)
     print(f"measured fit: {time.time()-t0:.1f}s  kernel-replaced "
@@ -613,6 +674,26 @@ def main(argv=None) -> int:
                   f"J* {bl.objective_trajectory[0]:.4f} -> "
                   f"{bl.objective_final:.4f} "
                   f"(+{bl.improvement_over_uniform:.4f} vs uniform split)")
+        elif args.joint:
+            # Joint co-design: which (machine, sharding) pair wins?  The
+            # primary cell keeps its kernel substitution; the remaining
+            # sharding variants enter as baseline profiles.
+            group = [profile]
+            for sv in SHARDING_VARIANTS:
+                if sv == variant:
+                    continue
+                alt = _run(cfg, shape, args.extract_device, where, sv)
+                alt.name += f"@{sv}"
+                group.append(alt)
+            gd = codesign_joint(group, args.grad, lr=args.grad_lr,
+                                area_budget=args.area_budget,
+                                power_budget=args.power_budget,
+                                device=args.device)
+            profile.meta["joint_codesign"] = gd
+            profile.meta["joint_profiles"] = [alt.to_json() for alt in group[1:]]
+            print(f"joint codesign over {len(group)} shardings: "
+                  f"best={gd['best_variant']} picks="
+                  f"{gd['selection'][gd['best_variant']]}")
         elif budgets is not None:
             # Feasibility frontier: how much fabric does this workload
             # actually need?  One continuation over the budget schedule.
@@ -686,7 +767,9 @@ def main(argv=None) -> int:
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        fname = f"{cfg.name}__{shape.name}__{MESH_LABEL}__{tag}.json"
+        stem = (f"{cfg.name}__{shape.name}__{where[0]}__{variant}" if where
+                else f"{cfg.name}__{shape.name}__{MESH_LABEL}")
+        fname = f"{stem}__{tag}.json"
         profile.save(os.path.join(args.out, fname))
     return 0
 

@@ -7,7 +7,14 @@ op by op without allocating.  ``input_specs(cfg, shape, device=...)``
 returns the cell's step function, its arguments (on ``device``: ``meta``
 for the dry run, the card or the CPU for a real run) and the same ``meta``
 dict as the JAX package (``params``, ``params_active``, ``tokens``,
-``step_kind``).  There is no mesh and there are no shardings.
+``step_kind``).  With ``mesh`` and ``sc`` (a ``DeviceMesh`` and a
+``distributed.sharding.ShardingConfig``) the arguments are DTensors with
+the rules' placements, the JAX package's ``in_shardings``: the parameters
+(``param_specs``), the AdamW moments (``opt_state_specs``: ZeRO-1 and FSDP
+shard them over "data"), the cache (``param_specs`` without FSDP) and the
+batch (``batch_spec``); the step counter stays a plain scalar, which a
+sharded step reads as replicated.  ``meta["param_bytes"]`` is then one
+device's parameter bytes.
 
 The steps are the JAX package's: ``make_train_step`` (AdamW, a fresh
 state), ``make_prefill_step`` (a zero cache of ``seq_len``, then the whole
@@ -26,7 +33,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.shapes import ShapeSpec, tokens_of
+from repro_torch.core.costs import storage_bytes
 from repro_torch.core.kernels_xp import resolve_device
+from repro_torch.distributed import place as PL
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import transformer as T
 from repro_torch.models.config import Family, ModelConfig
 from repro_torch.optim import adamw
@@ -67,10 +77,12 @@ class CellSpec:
 
 def input_specs(cfg: ModelConfig, shape: ShapeSpec, *, device="cuda",
                 oc: Optional[adamw.OptimizerConfig] = None, seed: int = 0,
-                model: Optional[T.Model] = None) -> CellSpec:
+                model: Optional[T.Model] = None, mesh=None,
+                sc: Optional[SH.ShardingConfig] = None) -> CellSpec:
     """The cell's step and arguments on ``device``.  ``model`` reuses
     weights already on that device (for an inference cell; a train cell
-    turns its parameters' grads on)."""
+    turns its parameters' grads on).  ``mesh`` (with ``sc``) shards the
+    arguments over it (module docstring)."""
     oc = oc or adamw.OptimizerConfig()
     dev = resolve_device(device)
     total, active = cfg.param_counts()
@@ -84,18 +96,41 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec, *, device="cuda",
     if model is None:
         model = T.init_model(cfg, gen, dev)
     B = shape.global_batch
+    sharded = mesh is not None
+    if sharded:
+        sc = sc or SH.ShardingConfig()
 
     if shape.kind == "train":
         state = init_state(cfg, oc, model=model)
-        return CellSpec(make_train_step(cfg, oc),
-                        (state, _batch(cfg, shape.seq_len, B, dev, gen)), meta)
+        batch = _batch(cfg, shape.seq_len, B, dev, gen)
+        if sharded:
+            PL.shard_state(cfg, model, mesh, sc, state)
+            batch = PL.shard_batch(batch, mesh, sc)
+        return CellSpec(make_train_step(cfg, oc), (state, batch), _meta(meta, model))
 
     cache = T.init_cache(cfg, B, shape.seq_len, device=dev)
+    if sharded:
+        PL.shard_state(cfg, model, mesh, sc)
+        cache = PL.shard_tree(cache, SH.param_specs(
+            _shapes(cache), T.cache_axes(cfg), mesh, sc, fsdp=False), mesh)
     if shape.kind == "prefill":
-        return CellSpec(make_prefill_step(cfg),
-                        (model, cache, _batch(cfg, shape.seq_len, B, dev, gen)), meta)
+        batch = _batch(cfg, shape.seq_len, B, dev, gen)
+        if sharded:
+            batch = PL.shard_batch(batch, mesh, sc)
+        return CellSpec(make_prefill_step(cfg), (model, cache, batch), _meta(meta, model))
 
     # decode: one new token with a cache of seq_len
     tok = _tokens(cfg, (B, 1), dev, gen)
+    if sharded:
+        tok = PL.shard_batch({"tok": tok}, mesh, sc)["tok"]
     return CellSpec(make_serve_step(cfg), (model, cache, tok, shape.seq_len - 1),
-                    meta)
+                    _meta(meta, model))
+
+
+def _shapes(tree):
+    return {k: _shapes(v) for k, v in tree.items()} if isinstance(tree, dict) \
+        else tuple(tree.shape)
+
+
+def _meta(meta, model):
+    return dict(meta, param_bytes=float(storage_bytes(model)))

@@ -26,6 +26,8 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import ctx as _ctx
+from repro_torch.distributed.place import is_dtensor
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models.config import ModelConfig
@@ -50,8 +52,76 @@ def _init_dense(shape, dtype, generator, device, scale: Optional[float] = None):
     return w.mul_(scale).to(dtype)
 
 
+def _tokens_whole(x):
+    """x (B, S, ...) with only its batch dim left split: a DTensor whose
+    sequence is split (sequence parallelism between blocks) is gathered
+    over the sequence where a block's first projections read it, as
+    Megatron's sequence parallelism does, and pending partial sums (a
+    decode step's vocabulary-parallel embedding rows) are reduced;
+    anything else as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    want = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in x.placements)
+    return x if want == tuple(x.placements) else x.redistribute(x.device_mesh, want)
+
+
+def _kv_whole(t):
+    """k or v (B, T, K, hd) projected by a DTensor layer whose kv heads do
+    not split over "model" (the rules then split head_dim): gathered over
+    "model" right after the projection, so rope, the norm and attention read
+    whole heads and the backward reduce-scatters the gradient back to the
+    projection's layout; anything else as it is."""
+    if not is_dtensor(t):
+        return t
+    names = t.device_mesh.mesh_dim_names
+    if "model" not in names or t.shape[2] % t.device_mesh.size(names.index("model")) == 0:
+        return t
+    return _tokens_whole(t)
+
+
+def _matmul_local(x, w):
+    """``_matmul`` of DTensors whose weight is split on an inner dim of the
+    ones the product flattens (a (d, K, hd) projection split on head_dim):
+    each device contracts its own blocks, as DTensor cannot flatten a dim
+    split inside (in every PyTorch release).  The result keeps x's splits
+    of its leading dims and w's of its trailing ones; x's gradient is a
+    partial sum over the mesh dims that split w, and w's over those that
+    split x."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    lead = x.ndim - 1
+    x_pl, w_pl = tuple(x.placements), tuple(w.placements)
+    out_pl, x_grad, w_grad = [], [], []
+    for xp, wp in zip(x_pl, w_pl):
+        x_split = isinstance(xp, Shard) and xp.dim < lead
+        w_split = isinstance(wp, Shard) and wp.dim >= 1
+        if x_split and w_split or isinstance(xp, Shard) and not x_split \
+                or isinstance(wp, Shard) and not w_split \
+                or not isinstance(xp, (Shard, Replicate)) \
+                or not isinstance(wp, (Shard, Replicate)):
+            raise ValueError(f"_matmul_local: {x_pl} x {w_pl}")
+        out_pl.append(xp if x_split else Shard(lead - 1 + wp.dim) if w_split
+                      else Replicate())
+        x_grad.append(Partial() if w_split else xp)
+        w_grad.append(Partial() if x_split else wp)
+    xl = x.to_local(grad_placements=tuple(x_grad))
+    wl = w.to_local(grad_placements=tuple(w_grad))
+    out = torch.matmul(xl, wl.reshape(wl.shape[0], -1)).reshape(
+        *xl.shape[:-1], *wl.shape[1:])
+    shape = (*x.shape[:-1], *w.shape[1:])
+    return DTensor.from_local(out, mesh, tuple(out_pl), run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Contract x's last dim with w's first: ``einsum("...d,d...->...")``."""
+    if is_dtensor(w) and w.ndim > 2 and any(
+            getattr(p, "dim", 0) >= 2 for p in w.placements):
+        return _matmul_local(x, w)
     out = torch.matmul(x, w.reshape(w.shape[0], -1))
     return out.reshape(*x.shape[:-1], *w.shape[1:])
 
@@ -154,9 +224,61 @@ def embed_init(cfg: ModelConfig, generator, device) -> Params:
     return p
 
 
+def vocab_local(t, ids, vdim: int):
+    """A DTensor ``t`` split over at most one mesh dim on its vocabulary dim
+    ``vdim`` (0 for the embedding table, the last for logits), read at
+    token ids ``ids`` (a DTensor or plain): -> (the mesh dims that split
+    the vocabulary, this device's ids less its shard's first id, clamped,
+    and the mask of the ids inside its shard, or the ids and None when the
+    vocabulary is whole)."""
+    from torch.distributed.tensor import Shard
+
+    mesh = t.device_mesh
+    vdim %= t.ndim
+    split = [i for i, p in enumerate(t.placements)
+             if isinstance(p, Shard) and p.dim % t.ndim == vdim]
+    ids_l = ids.to_local() if is_dtensor(ids) else ids
+    if not split:
+        return split, ids_l, None
+    (md,) = split
+    n = t.shape[vdim] // mesh.size(md)
+    v0 = mesh.get_local_rank(md) * n
+    inside = (ids_l >= v0) & (ids_l < v0 + n)
+    return split, (ids_l - v0).clamp(0, n - 1), inside
+
+
+def _embed_sharded(tok, tokens):
+    """The token embedding of DTensors in a local region (Megatron's
+    vocabulary-parallel lookup): each device looks up the ids inside its
+    vocabulary shard (zeros elsewhere) for its batch rows, and the rows are
+    partial sums over the mesh dim that splits the vocabulary.  The table's
+    gradient is a partial sum over the mesh dims that split the batch."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = tok.device_mesh
+    tok_pl = tuple(tok.placements)
+    ids_pl = tuple(tokens.placements) if is_dtensor(tokens) else (Replicate(),) * mesh.ndim
+    split, ids, inside = vocab_local(tok, tokens, 0)
+    grad = tuple(Partial() if isinstance(ip, Shard) else tp
+                 for ip, tp in zip(ids_pl, tok_pl))
+    rows = tok.to_local(grad_placements=grad)[ids]
+    if inside is not None:
+        rows = rows * inside[..., None].to(rows.dtype)
+    out_pl = tuple(Partial() if i in split else
+                   (ip if isinstance(ip, Shard) else Replicate())
+                   for i, ip in enumerate(ids_pl))
+    shape = (*tokens.shape, tok.shape[1])
+    return DTensor.from_local(rows, mesh, out_pl, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def embed_apply(p: Mapping, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     # gather, then cast: the JAX package's cast-then-gather, elementwise
-    x = p["tok"][tokens].to(dtype_of(cfg.compute_dtype))
+    tok = p["tok"]
+    if is_dtensor(tok):
+        x = _embed_sharded(tok, tokens).to(dtype_of(cfg.compute_dtype))
+    else:
+        x = tok[tokens].to(dtype_of(cfg.compute_dtype))
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
@@ -166,7 +288,7 @@ def embed_apply(p: Mapping, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Ten
 def unembed_apply(p: Mapping, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     cd = dtype_of(cfg.compute_dtype)
     w = p["unembed"] if not cfg.tie_embeddings else p["tok"].T
-    return torch.matmul(x.to(cd), w.to(cd))
+    return torch.matmul(_tokens_whole(x.to(cd)), w.to(cd))
 
 
 # --------------------------------------------------------------------------- #
@@ -246,6 +368,16 @@ def _write_cache(cache: Dict[str, torch.Tensor], k, v, cache_index) -> None:
     """Insert k, v (B, S, K, hd) into the layer's cache (B, S_max, K, hd) in
     place: at one shared position, or at one position per row (continuous
     batching; decode only, so S == 1)."""
+    if is_dtensor(cache["k"]):
+        # in a local region: each device writes its own rows and heads
+        ck = cache["k"]
+        mesh, pl = ck.device_mesh, ck.placements
+        if torch.is_tensor(cache_index) and cache_index.dim():
+            cache_index = _plain(cache_index)[_local_rows(ck)]
+        _write_cache({"k": ck.to_local(), "v": cache["v"].to_local()},
+                     k.redistribute(mesh, pl).to_local(),
+                     v.redistribute(mesh, pl).to_local(), cache_index)
+        return
     idx = cache_index
     if torch.is_tensor(idx) and idx.dim():
         rows = torch.arange(k.shape[0], device=k.device)
@@ -292,19 +424,20 @@ def attn_apply(
     cross_cached = cache is not None and (static_cache or kv_x is not None)
     self_cached = cache is not None and not cross_cached
 
-    xc = x.to(cd)
+    xc = _tokens_whole(x.to(cd))
     q = _matmul(xc, p["wq"].to(cd))
     if cfg.qkv_bias:
         q = q + p["bq"].to(cd)
     if cross_cached:
         k, v = cache["k"].to(cd), cache["v"].to(cd)
     else:
-        src = kv_x.to(cd) if kv_x is not None else xc
+        src = _tokens_whole(kv_x.to(cd)) if kv_x is not None else xc
         k = _matmul(src, p["wk"].to(cd))
         v = _matmul(src, p["wv"].to(cd))
         if cfg.qkv_bias:
             k = k + p["bk"].to(cd)
             v = v + p["bv"].to(cd)
+        k, v = _kv_whole(k), _kv_whole(v)
 
     if cfg.qk_norm:
         q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
@@ -335,25 +468,130 @@ def attn_apply(
     # causal.  Like that kernel it assumes q_pos is the plain 0..S-1 range
     # (full-sequence forward) and ignores attn_logit_softcap and
     # attn_q_chunk.  It reads the (B, S, H, hd) projections through
-    # strides and returns its output in the same memory order.
-    if (cfg.attn_impl == "pallas" and kv_x is None and cache is None
-            and not mask.everything and mask.prefix_len == 0 and mask.causal):
+    # strides and returns its output in the same memory order.  On a mesh
+    # it runs on each device's local tensors (``_attend_sharded``).
+    k5 = (cfg.attn_impl == "pallas" and kv_x is None and cache is None
+          and not mask.everything and mask.prefix_len == 0 and mask.causal)
+    if is_dtensor(q):
+        ctx = _attend_sharded(q, k, v, q_pos, k_pos, mask, cfg, k5)
+    elif k5:
         ctx = kops.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=True, window=mask.window).transpose(1, 2)
         return torch.matmul(ctx.reshape(B, S, H * hd), wo), None
+    else:
+        ctx = _attend(q.reshape(B, S, K, G, hd), k, v, q_pos, k_pos, mask, cfg)
+    out = torch.matmul(ctx.reshape(B, S, H * hd), wo)
+    return out, cache if self_cached else None
 
-    qg = q.reshape(B, S, K, G, hd)
+
+def _attend(qg, k, v, q_pos, k_pos, mask: MaskSpec, cfg: ModelConfig):
+    """The plain attention over grouped queries qg (B, S, K, G, hd) ->
+    (B, S, K, G, hd); q-chunked when ``cfg.attn_q_chunk`` divides S."""
+    S = qg.shape[1]
     qc = cfg.attn_q_chunk
     if qc and S > qc and S % qc == 0:
         # blockwise attention: loop over q chunks; scores stay (B,qc,T)
-        ctx = torch.cat([
+        return torch.cat([
             _sdpa(qg[:, i:i + qc], k, v, mask.build(q_pos[:, i:i + qc], k_pos), cfg)
             for i in range(0, S, qc)], dim=1)
+    return _sdpa(qg, k, v, mask.build(q_pos, k_pos), cfg)
+
+
+def _attend_sharded(q, k, v, q_pos, k_pos, mask: MaskSpec, cfg: ModelConfig,
+                    k5: bool = False):
+    """Attention of DTensor q (B, S, H, hd) over k, v (B, T, K, hd) in an
+    explicit local region: each device attends its batch rows (split over
+    the data axes) with its block of query heads (split over "model" when
+    the heads divide, each block with the kv heads it reads, which are
+    gathered over "model" when they do not split with it).  The result is
+    (B, S, H, hd), laid out as the region's q.  Positions and the mask are
+    the device's rows.  With ``k5`` (``attn_apply``'s gate, one for both
+    paths) the kernel K5 attends the local tensors."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    names = list(mesh.mesh_dim_names)
+    info = _ctx.shmap_info()
+    dp_axes = tuple(info[0]) if info else tuple(a for a in ("pod", "data") if a in names)
+    tp = (info[1] if info else "model") if "model" in names else None
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    dp = 1
+    for a in dp_axes:
+        dp *= mesh.size(names.index(a))
+    n_tp = mesh.size(names.index(tp)) if tp else 1
+    split_b = B % dp == 0
+    H_loc = H // n_tp if tp and H % n_tp == 0 else H
+    if H_loc % G == 0:
+        K_loc, G_loc = H_loc // G, G
+    elif G % H_loc == 0:
+        K_loc, G_loc = 1, H_loc
     else:
-        ctx = _sdpa(qg, k, v, mask.build(q_pos, k_pos), cfg)
-    out = torch.matmul(ctx.reshape(B, S, H * hd), wo)
-    return out, cache if self_cached else None
+        H_loc, K_loc, G_loc = H, K, G
+    split_h = H_loc < H
+    split_kv = split_h and K % n_tp == 0 and K_loc == K // n_tp
+
+    def pl(head_split):
+        out = [Replicate() for _ in names]
+        for a in dp_axes:
+            if split_b:
+                out[names.index(a)] = Shard(0)
+        if head_split:
+            out[names.index(tp)] = Shard(2)
+        return tuple(out)
+
+    q_pl, kv_pl = pl(split_h), pl(split_kv)
+    B_loc = B // dp if split_b else B
+    b0 = 0
+    if split_b:
+        for a in dp_axes:
+            b0 = b0 * mesh.size(names.index(a)) + mesh.get_local_rank(a)
+        b0 *= B_loc
+    j = mesh.get_local_rank(tp) if split_h else 0
+    k0 = 0 if split_kv or not split_h else (j * H_loc) // G
+
+    # kv heads gathered over "model" are read in part by each device: their
+    # gradient is a partial sum over "model"
+    kv_grad = tuple(Partial() if split_h and not split_kv and names[i] == tp else p
+                    for i, p in enumerate(kv_pl))
+    ql = q.redistribute(mesh, q_pl).to_local()
+    kl = k.redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
+    vl = v.redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
+    if not split_kv:
+        kl, vl = kl[:, :, k0:k0 + K_loc], vl[:, :, k0:k0 + K_loc]
+    rows = slice(b0, b0 + B_loc)
+    qp = _plain(q_pos)[rows] if q_pos.shape[0] == B else _plain(q_pos)
+    kp = _plain(k_pos)[rows] if k_pos.shape[0] == B else _plain(k_pos)
+    if k5:
+        ctx = kops.flash_attention(
+            ql.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2),
+            causal=True, window=mask.window).transpose(1, 2)
+    else:
+        ctx = _attend(ql.reshape(B_loc, S, K_loc, G_loc, hd), kl, vl, qp, kp,
+                      mask, cfg).reshape(B_loc, S, H_loc, hd)
+    return DTensor.from_local(ctx.contiguous(), mesh, q_pl, run_check=False,
+                              shape=(B, S, H, hd),
+                              stride=(S * H * hd, H * hd, hd, 1))
+
+
+def _local_rows(t) -> slice:
+    """The rows of dim 0 of the DTensor ``t`` that this device holds."""
+    from torch.distributed.tensor import Shard
+
+    mesh = t.device_mesh
+    n, b0 = 1, 0
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            b0 = b0 * mesh.size(i) + mesh.get_local_rank(i)
+            n *= mesh.size(i)
+    rows = t.shape[0] // n
+    return slice(b0 * rows, (b0 + 1) * rows)
+
+
+def _plain(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 # --------------------------------------------------------------------------- #
@@ -383,7 +621,7 @@ def mlp_init(cfg: ModelConfig, generator, device,
 
 def mlp_apply(p: Mapping, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     cd = dtype_of(cfg.compute_dtype)
-    x = x.to(cd)
+    x = _tokens_whole(x.to(cd))
     if cfg.mlp in ("swiglu", "geglu"):
         gate = torch.matmul(x, p["w_gate"].to(cd))
         up = torch.matmul(x, p["w_up"].to(cd))
@@ -432,12 +670,21 @@ def moe_apply(p: Mapping, cfg: ModelConfig,
     each row, weighted by its gate, back to its token.  Only those experts'
     weights are cast to the compute dtype.  impl="dense": every expert on
     every token.  impl="capacity": ``_moe_capacity``."""
-    m = cfg.moe
-    assert m is not None
+    if is_dtensor(x):
+        return _moe_sharded(p, cfg, x)
     cd = dtype_of(cfg.compute_dtype)
     B, S, D = x.shape
-    T = B * S
-    xt = x.reshape(T, D).to(cd)
+    xt = x.reshape(B * S, D).to(cd)
+    gates, idx, aux = _route(p, cfg, xt)
+    return _experts(p, cfg, xt, gates, idx).reshape(B, S, D), aux
+
+
+def _route(p: Mapping, cfg: ModelConfig, xt: torch.Tensor):
+    """The router over tokens xt (T, D): -> (gates (T, k) f32, their
+    experts (T, k), the Switch aux loss)."""
+    m = cfg.moe
+    assert m is not None
+    cd = xt.dtype
     E, k = m.n_experts, m.top_k
 
     logits = torch.matmul(xt, p["router"].to(cd)).float()
@@ -451,14 +698,29 @@ def moe_apply(p: Mapping, cfg: ModelConfig,
     density = (idx[:, :1] == torch.arange(E, device=idx.device)).float().mean(0)
     router_prob = probs.mean(0)
     aux = (density * router_prob).sum() * E * m.aux_loss_weight
+    return gates, idx, aux
 
+
+def _shared_gate(p: Mapping, cfg: ModelConfig, xt: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(torch.matmul(xt, p["shared_gate"].to(xt.dtype)).float()
+                         ).to(xt.dtype)
+
+
+def _experts(p: Mapping, cfg: ModelConfig, xt: torch.Tensor, gates, idx,
+             sg=None) -> torch.Tensor:
+    """The routed experts (and the shared ones, weighted by ``sg``, their
+    gate, computed here when not given) over tokens xt (T, D) -> (T, D)."""
+    m = cfg.moe
+    cd = xt.dtype
+    T = xt.shape[0]
+    E, k = m.n_experts, m.top_k
     act = F.silu if cfg.mlp == "swiglu" else functools.partial(F.gelu, approximate="tanh")
     if m.impl == "dense":
         # (T, E, f) -- every expert everywhere; only for tiny configs.
         h_g = torch.einsum("td,edf->tef", xt, p["w_gate"].to(cd))
         h_u = torch.einsum("td,edf->tef", xt, p["w_up"].to(cd))
         y_all = torch.einsum("tef,efd->ted", act(h_g) * h_u, p["w_down"].to(cd))
-        combine = torch.zeros((T, E), dtype=cd, device=x.device).scatter_add_(
+        combine = torch.zeros((T, E), dtype=cd, device=xt.device).scatter_add_(
             1, idx, gates.to(cd))
         y = torch.einsum("ted,te->td", y_all, combine)
     elif m.impl == "capacity":
@@ -489,9 +751,70 @@ def moe_apply(p: Mapping, cfg: ModelConfig,
         g = torch.matmul(xt, sh["w_gate"].to(cd))
         u = torch.matmul(xt, sh["w_up"].to(cd))
         ys = torch.matmul(act(g) * u, sh["w_down"].to(cd))
-        sg = torch.sigmoid(torch.matmul(xt, p["shared_gate"].to(cd)).float()).to(cd)
+        if sg is None:
+            sg = _shared_gate(p, cfg, xt)
         y = y + ys * sg
+    return y
 
+
+def _moe_sharded(p: Mapping, cfg: ModelConfig, x):
+    """``moe_apply`` of a DTensor x (B, S, D), the JAX package's Megatron-MoE
+    dataflow: the router (and the shared experts' gate) runs as DTensor
+    operations on the tokens, split over the data axes and whole over
+    "model"; then, in an explicit local region (its ``shard_map``), each
+    device sends its data shard's tokens (one routing group a shard)
+    through every expert's slice of the ffn dim (split over "model"; the
+    experts' other splits are gathered), combines them with their gates
+    into token-sized partial outputs, and one all-reduce over "model" sums
+    them.  The gates' and the tokens' gradients from the region are
+    partial sums over "model", the weights' over the data axes."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    names = list(mesh.mesh_dim_names)
+    info = _ctx.shmap_info()
+    dp_axes = tuple(info[0]) if info else tuple(a for a in ("pod", "data") if a in names)
+    tp = "model" if "model" in names else None
+    B, S, D = x.shape
+    dp = 1
+    for a in dp_axes:
+        dp *= mesh.size(names.index(a))
+    n_tp = mesh.size(names.index(tp)) if tp else 1
+    split_b = B % dp == 0
+    cd = dtype_of(cfg.compute_dtype)
+    m = cfg.moe
+
+    tok_pl = tuple(Shard(0) if split_b and a in dp_axes else Replicate() for a in names)
+    xt = x.redistribute(mesh, tok_pl).reshape(B * S, D).to(cd)
+    gates, idx, aux = _route(p, cfg, xt)
+    sg = _shared_gate(p, cfg, xt) if m.n_shared_experts else None
+    split = tp is not None and m.d_ff_expert % n_tp == 0 and (
+        not m.n_shared_experts or m.d_ff_shared * m.n_shared_experts % n_tp == 0)
+    # what the region reads whole on every "model" rank for its ffn slice
+    # gets a partial sum over "model" as its gradient
+    part = tuple(Partial() if split and a == tp else q for a, q in zip(names, tok_pl))
+
+    def local(w, dim):
+        """w's local block, split over "model" on ``dim`` (when the ffn
+        splits); each data shard's tokens make a partial sum of its
+        gradient."""
+        want = tuple(Shard(dim) if split and a == tp else Replicate() for a in names)
+        grad = tuple(Partial() if split_b and a in dp_axes else q
+                     for a, q in zip(names, want))
+        return w.redistribute(mesh, want).to_local(grad_placements=grad)
+
+    lp = {"w_gate": local(p["w_gate"], 2), "w_up": local(p["w_up"], 2),
+          "w_down": local(p["w_down"], 1)}
+    if m.n_shared_experts:
+        sh = p["shared"]
+        lp["shared"] = {"w_gate": local(sh["w_gate"], 1), "w_up": local(sh["w_up"], 1),
+                        "w_down": local(sh["w_down"], 0)}
+        sg = sg.redistribute(mesh, tok_pl).to_local(grad_placements=part)
+    y = _experts(lp, cfg, xt.to_local(grad_placements=part),
+                 gates.redistribute(mesh, tok_pl).to_local(grad_placements=part),
+                 idx.redistribute(mesh, tok_pl).to_local(), sg)
+    y = DTensor.from_local(y, mesh, part, run_check=False, shape=(B * S, D),
+                           stride=(D, 1)).redistribute(mesh, tok_pl)
     return y.reshape(B, S, D), aux
 
 
@@ -650,7 +973,7 @@ def rglru_apply(p: Mapping, cfg: ModelConfig, x: torch.Tensor, *,
     h = cfg.hybrid
     assert h is not None
     cd = dtype_of(cfg.compute_dtype)
-    x = x.to(cd)
+    x = _tokens_whole(x.to(cd))
     B, S, _ = x.shape
     w = p["w_x"].shape[1]
     wb = w // _LRU_BLOCKS
@@ -763,7 +1086,7 @@ def mamba_apply(p: Mapping, cfg: ModelConfig, x: torch.Tensor, *,
     s = cfg.ssm
     assert s is not None
     cd = dtype_of(cfg.compute_dtype)
-    x = x.to(cd)
+    x = _tokens_whole(x.to(cd))
     n = s.state_dim
     dt_rank = p["w_dt"].shape[0]
 
@@ -795,3 +1118,75 @@ def mamba_apply(p: Mapping, cfg: ModelConfig, x: torch.Tensor, *,
     y = y + p["D"].float() * xi.float()
     y = y.to(cd) * F.silu(z)
     return torch.matmul(y, p["w_out"].to(cd))
+
+
+# --------------------------------------------------------------------------- #
+# Logical axes (the JAX package's ``*_init`` second results)
+# --------------------------------------------------------------------------- #
+#
+# Each layer's parameters carry a tuple of logical axis names per tensor
+# ("embed", "heads", "mlp", "experts", "vocab", ...), which the sharding
+# rules (``repro_torch.distributed.sharding``) map onto mesh axes.  The
+# trees mirror the ``*_init`` dicts above key for key.
+
+
+def norm_axes(cfg: ModelConfig) -> Dict:
+    a = {"scale": ("embed",)}
+    if cfg.norm == "layernorm":
+        a["bias"] = ("embed",)
+    return a
+
+
+def embed_axes(cfg: ModelConfig) -> Dict:
+    a = {"tok": ("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        a["unembed"] = ("embed", "vocab")
+    return a
+
+
+def attn_axes(cfg: ModelConfig) -> Dict:
+    a = {"wq": ("embed", "heads", "head_dim"),
+         "wk": ("embed", "kv_heads", "head_dim"),
+         "wv": ("embed", "kv_heads", "head_dim"),
+         "wo": ("heads", "head_dim", "embed")}
+    if cfg.qkv_bias:
+        a.update(bq=("heads", "head_dim"), bk=("kv_heads", "head_dim"),
+                 bv=("kv_heads", "head_dim"))
+    if cfg.qk_norm:
+        a.update(q_norm=("head_dim",), k_norm=("head_dim",))
+    return a
+
+
+def mlp_axes(cfg: ModelConfig) -> Dict:
+    if cfg.mlp in ("swiglu", "geglu"):
+        return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+                "w_down": ("mlp", "embed")}
+    return {"w_up": ("embed", "mlp"), "b_up": ("mlp",),
+            "w_down": ("mlp", "embed"), "b_down": ("embed",)}
+
+
+def moe_axes(cfg: ModelConfig) -> Dict:
+    a = {"router": ("embed", None),
+         "w_gate": ("experts", "embed", "mlp"),
+         "w_up": ("experts", "embed", "mlp"),
+         "w_down": ("experts", "mlp", "embed")}
+    if cfg.moe.n_shared_experts:
+        a["shared"] = {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+                       "w_down": ("mlp", "embed")}
+        a["shared_gate"] = ("embed", None)
+    return a
+
+
+def rglru_axes(cfg: ModelConfig) -> Dict:
+    return {"w_x": ("embed", "mlp"), "w_y": ("embed", "mlp"),
+            "conv_w": ("conv", "mlp"), "conv_b": ("mlp",),
+            "gate_a": (None, "mlp_block", "mlp_block"),
+            "gate_x": (None, "mlp_block", "mlp_block"),
+            "lambda": ("mlp",), "w_out": ("mlp", "embed")}
+
+
+def mamba_axes(cfg: ModelConfig) -> Dict:
+    return {"w_in": ("embed", "mlp"), "conv_w": ("conv", "mlp"),
+            "conv_b": ("mlp",), "w_xdbc": ("mlp", None), "w_dt": (None, "mlp"),
+            "dt_bias": ("mlp",), "A_log": ("mlp", "state"), "D": ("mlp",),
+            "w_out": ("mlp", "embed")}

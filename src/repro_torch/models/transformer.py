@@ -25,14 +25,24 @@ local-attention block, then the tail's RG-LRU blocks) and audio (a
 whisper encoder over frame embeddings and a decoder of self-attention,
 cross-attention and MLP blocks).
 
+Sharding: ``param_axes(cfg)`` and ``cache_axes(cfg)`` are the JAX
+package's logical axes (its ``init_model`` / ``init_cache`` second
+results), keyed by the ``ParamTree`` names in the stacked layout, and
+``param_shapes(model)`` the matching stacked shapes; the blocks call
+``distributed.ctx.constrain`` at the JAX package's block boundaries (the
+identity outside ``use_rules``).  A model whose parameters are DTensors
+(``distributed.place.shard_model``) runs sharded: attention, the MoE, the
+embedding lookup and the label pick of the loss run in explicit local
+regions (``layers``), and a parameter split over the data axes (FSDP) is
+gathered where a layer reads it.
+
 Where the port differs: the layer ``scan`` is a Python loop over the
-model's stacks; sharding constraints and logical axes have no
-counterpart (``init_model`` and ``init_cache`` return no axes); the KV
-caches and the recurrent states are written in place, and the cache
+model's stacks; ``init_model`` and ``init_cache`` return no axes (the
+functions above give them); the KV caches and the recurrent states are written in place, and the cache
 ``forward``, ``prefill`` and ``decode_step`` return is the one they were
 given (the audio prefill replaces the cross k/v tensors inside it);
-``prefill`` and ``decode_step`` run under ``torch.inference_mode()``, and
-so do ``forward``, ``encode`` and ``loss_fn`` unless autograd is on and
+``prefill`` and ``decode_step`` run under ``torch.inference_mode()`` (a
+sharded model's under ``torch.no_grad()``), and so do ``forward``, ``encode`` and ``loss_fn`` unless autograd is on and
 the model has a parameter that requires grad (``repro_torch.training``
 turns its model's on), when they build the graph ``torch.autograd.grad``
 differentiates.  The kernels K5-K8 have no backward: a call that would
@@ -70,6 +80,8 @@ import torch
 from torch import nn
 
 from repro_torch.core.kernels_xp import resolve_device
+from repro_torch.distributed.ctx import constrain
+from repro_torch.distributed.place import is_dtensor
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.config import Family, ModelConfig
@@ -92,7 +104,7 @@ class ParamTree(nn.Module):
                 self.register_parameter(name, nn.Parameter(v, requires_grad=False))
 
     def __getitem__(self, name: str):
-        return getattr(self, name)
+        return _gather_data_shards(getattr(self, name))
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
@@ -102,6 +114,21 @@ class ParamTree(nn.Module):
 
     def items(self):
         return [(k, self[k]) for k in self.keys()]
+
+
+def _gather_data_shards(t):
+    """A parameter read by a layer: a DTensor split over the data axes
+    (FSDP) is gathered over them first, where the layer uses it, so the
+    gather and its backward reduce-scatter sit at each use as in FSDP;
+    anything else as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = t.device_mesh.mesh_dim_names
+    want = tuple(Replicate() if isinstance(p, Shard) and names[i] in ("pod", "data")
+                 else p for i, p in enumerate(t.placements))
+    return t if want == tuple(t.placements) else t.redistribute(t.device_mesh, want)
 
 
 def hybrid_layout(cfg: ModelConfig) -> Tuple[int, int]:
@@ -231,6 +258,117 @@ def init_model(cfg: ModelConfig, generator: torch.Generator = None,
 
 
 # --------------------------------------------------------------------------- #
+# logical axes (the JAX package's ``init_model`` / ``init_cache`` axes)
+# --------------------------------------------------------------------------- #
+
+
+def _stacked(axes: Mapping, depth: int = 1) -> Dict:
+    """``axes`` with ``depth`` "layers" axes in front of every leaf."""
+    return {k: _stacked(v, depth) if isinstance(v, Mapping)
+            else ("layers",) * depth + tuple(v) for k, v in axes.items()}
+
+
+def _dense_block_axes(cfg):
+    return {"attn": L.attn_axes(cfg), "mlp": L.mlp_axes(cfg),
+            "ln1": L.norm_axes(cfg), "ln2": L.norm_axes(cfg)}
+
+
+def _moe_block_axes(cfg):
+    return {"attn": L.attn_axes(cfg), "moe": L.moe_axes(cfg),
+            "ln1": L.norm_axes(cfg), "ln2": L.norm_axes(cfg)}
+
+
+def _ssm_block_axes(cfg):
+    return {"mamba": L.mamba_axes(cfg), "ln": L.norm_axes(cfg)}
+
+
+def _rec_block_axes(cfg):
+    return {"rec": L.rglru_axes(cfg), "mlp": L.mlp_axes(cfg),
+            "ln1": L.norm_axes(cfg), "ln2": L.norm_axes(cfg)}
+
+
+def _xattn_block_axes(cfg):
+    return {"self": L.attn_axes(cfg), "cross": L.attn_axes(cfg),
+            "mlp": L.mlp_axes(cfg), "ln1": L.norm_axes(cfg),
+            "ln2": L.norm_axes(cfg), "ln3": L.norm_axes(cfg)}
+
+
+_BLOCK_AXES = {Family.DENSE: _dense_block_axes, Family.VLM: _dense_block_axes,
+               Family.MOE: _moe_block_axes, Family.SSM: _ssm_block_axes}
+
+
+def param_axes(cfg: ModelConfig) -> Dict:
+    """The logical axes of ``init_model(cfg)``'s parameters, keyed by the
+    ``ParamTree`` names, with the JAX package's stacked layout: a leaf of a
+    stack (``layers``, ``groups``, ``tail``, ``enc_layers``,
+    ``dec_layers``) has one "layers" axis in front per stacking level (the
+    hybrid's ``groups.rec`` two), where the port keeps a list of per-layer
+    trees.  ``param_shapes`` gives the matching stacked shapes."""
+    axes = {"embed": L.embed_axes(cfg), "final_norm": L.norm_axes(cfg)}
+    n = _stack_lengths(cfg)
+    if cfg.family in _BLOCK_AXES:
+        axes["layers"] = _stacked(_BLOCK_AXES[Family(cfg.family)](cfg))
+    elif cfg.family == Family.HYBRID:
+        axes["groups"] = {"rec": _stacked(_rec_block_axes(cfg), 2),
+                          "att": _stacked(_dense_block_axes(cfg))}
+        if n["tail"]:
+            axes["tail"] = _stacked(_rec_block_axes(cfg))
+    else:   # audio
+        axes["enc_layers"] = _stacked(_dense_block_axes(cfg))
+        axes["dec_layers"] = _stacked(_xattn_block_axes(cfg))
+        axes["enc_norm"] = L.norm_axes(cfg)
+        axes["enc_pos"] = ("positions", "embed")
+        if cfg.decoder_pos_len:
+            axes["dec_pos"] = ("positions", "embed")
+    return axes
+
+
+def param_shapes(model: nn.Module) -> Dict:
+    """The stacked shape of every parameter of ``model`` (a ``ParamTree``),
+    in ``param_axes``' layout: a stack of n per-layer trees gives each leaf
+    a leading dim n."""
+
+    def walk(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, nn.ModuleList):
+                out[k] = _lead(len(v), walk(v[0]))
+            elif isinstance(v, ParamTree):
+                out[k] = walk(v)
+            else:
+                out[k] = tuple(v.shape)
+        return out
+
+    def _lead(n, tree):
+        return {k: _lead(n, v) if isinstance(v, dict) else (n,) + v
+                for k, v in tree.items()}
+
+    return walk(model)
+
+
+_KV_AXES = {"k": ("layers", "batch", None, "kv_heads", "head_dim"),
+            "v": ("layers", "batch", None, "kv_heads", "head_dim")}
+
+
+def cache_axes(cfg: ModelConfig) -> Dict:
+    """The logical axes of ``init_cache(cfg, ...)``'s tensors."""
+    if cfg.family == Family.SSM:
+        return {"conv": ("layers", "batch", None, "mlp"),
+                "ssm": ("layers", "batch", "mlp", "state")}
+    if cfg.family == Family.HYBRID:
+        def rec_axes(extra):
+            return {"conv": extra + ("batch", None, "mlp"),
+                    "lru": extra + ("batch", "mlp")}
+        ax = {"groups": {"rec": rec_axes(("layers", None)), "att": dict(_KV_AXES)}}
+        if hybrid_layout(cfg)[1]:
+            ax["tail"] = rec_axes(("layers",))
+        return ax
+    if cfg.family == Family.AUDIO:
+        return {"self": dict(_KV_AXES), "cross": dict(_KV_AXES)}
+    return dict(_KV_AXES)
+
+
+# --------------------------------------------------------------------------- #
 # blocks
 # --------------------------------------------------------------------------- #
 
@@ -247,6 +385,14 @@ def _at(cache, i):
     return {k: _at(v, i) if isinstance(v, dict) else v[i] for k, v in cache.items()}
 
 
+def _residual(x, h):
+    """``constrain(x + h, "acts")``, the JAX package's block boundary.  The
+    branch ``h`` takes the layout first (under sequence parallelism its
+    partial sums are reduce-scattered over the sequence), so its gradient
+    comes back gathered in the layout the branch computed it in."""
+    return constrain(x + constrain(h, "acts"), "acts")
+
+
 def _dense_block_apply(bp, cfg, x, *, rope, mask, q_pos=None, k_pos=None,
                        cache=None, index=None):
     """Pre-norm attention + MLP block, or + MoE for a block that has one:
@@ -256,22 +402,23 @@ def _dense_block_apply(bp, cfg, x, *, rope, mask, q_pos=None, k_pos=None,
         rope=rope, mask=mask, q_pos=q_pos, k_pos=k_pos,
         cache=cache, cache_index=index,
     )
-    x = x + h
+    x = _residual(x, h)
     if "moe" in bp:
         y, aux = L.moe_apply(bp.moe, cfg, L.norm_apply(bp.ln2, cfg, x))
-        return x + y, aux
-    return x + L.mlp_apply(bp.mlp, cfg, L.norm_apply(bp.ln2, cfg, x)), None
+        return _residual(x, y), aux
+    return _residual(x, L.mlp_apply(bp.mlp, cfg, L.norm_apply(bp.ln2, cfg, x))), None
 
 
 def _ssm_block_apply(bp, cfg, x, *, state=None):
     h = L.mamba_apply(bp.mamba, cfg, L.norm_apply(bp.ln, cfg, x), state=state,
                       scan_chunk=cfg.ssm.scan_chunk)
-    return x + h
+    return _residual(x, h)
 
 
 def _rec_block_apply(bp, cfg, x, *, state=None):
-    x = x + L.rglru_apply(bp.rec, cfg, L.norm_apply(bp.ln1, cfg, x), state=state)
-    return x + L.mlp_apply(bp.mlp, cfg, L.norm_apply(bp.ln2, cfg, x))
+    x = _residual(x, L.rglru_apply(bp.rec, cfg, L.norm_apply(bp.ln1, cfg, x),
+                                   state=state))
+    return _residual(x, L.mlp_apply(bp.mlp, cfg, L.norm_apply(bp.ln2, cfg, x)))
 
 
 def _xattn_block_apply(bp, cfg, x, *, mask, q_pos=None, k_pos=None,
@@ -285,12 +432,12 @@ def _xattn_block_apply(bp, cfg, x, *, mask, q_pos=None, k_pos=None,
         mask=mask, q_pos=q_pos, k_pos=k_pos,
         cache=cache["self"] if cache is not None else None, cache_index=index,
     )
-    x = x + h
+    x = _residual(x, h)
     cross = cache["cross"] if cache is not None else None
     h, _ = L.attn_apply(bp.cross, cfg, L.norm_apply(bp.ln2, cfg, x),
                         kv_x=enc_out, cache=cross, static_cache=cross is not None)
-    x = x + h
-    return x + L.mlp_apply(bp.mlp, cfg, L.norm_apply(bp.ln3, cfg, x))
+    x = _residual(x, h)
+    return _residual(x, L.mlp_apply(bp.mlp, cfg, L.norm_apply(bp.ln3, cfg, x)))
 
 
 def _ssm_stack(model: Model, cfg: ModelConfig, x: torch.Tensor, cache=None):
@@ -320,9 +467,9 @@ def _ring_write(bp, cfg, x, rope, kv) -> None:
     arange(take)) % W`` of its (B, W, K, hd) layer views -- computed as the
     JAX package computes them (no bias, no k-norm)."""
     cd = L.dtype_of(cfg.compute_dtype)
-    xn = L.norm_apply(bp.ln1, cfg, x).to(cd)
-    k = L._matmul(xn, bp.attn["wk"].to(cd))
-    v = L._matmul(xn, bp.attn["wv"].to(cd))
+    xn = L._tokens_whole(L.norm_apply(bp.ln1, cfg, x).to(cd))
+    k = L._kv_whole(L._matmul(xn, bp.attn["wk"].to(cd)))
+    v = L._kv_whole(L._matmul(xn, bp.attn["wv"].to(cd)))
     if rope is not None:
         k = L.apply_rope(k, *rope, cfg.rope_style)
     W, S = kv["k"].shape[1], k.shape[1]
@@ -369,15 +516,37 @@ def trains(model: nn.Module) -> bool:
     return torch.is_grad_enabled() and any(p.requires_grad for p in model.parameters())
 
 
+def _no_grad_for(model: nn.Module):
+    """``torch.inference_mode()``, or ``torch.no_grad()`` for a model whose
+    parameters are DTensors."""
+    from repro_torch.distributed.place import is_dtensor
+
+    if any(is_dtensor(p) for p in model.parameters()):
+        return torch.no_grad()
+    return torch.inference_mode()
+
+
+def _without_autograd(fn):
+    """Run ``fn(model, ...)`` under ``_no_grad_for(model)``."""
+
+    @functools.wraps(fn)
+    def wrapped(model, *args, **kwargs):
+        with _no_grad_for(model):
+            return fn(model, *args, **kwargs)
+
+    return wrapped
+
+
 def _inference_unless_training(fn):
     """Run ``fn(model, ...)`` under ``torch.inference_mode()`` unless
-    ``trains(model)``."""
+    ``trains(model)``; a model sharded over a mesh (DTensor parameters,
+    which inference tensors cannot wrap) runs under ``torch.no_grad()``."""
 
     @functools.wraps(fn)
     def wrapped(model, *args, **kwargs):
         if trains(model):
             return fn(model, *args, **kwargs)
-        with torch.inference_mode():
+        with _no_grad_for(model):
             return fn(model, *args, **kwargs)
 
     return wrapped
@@ -407,7 +576,7 @@ def forward(model: Model, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
     the cache holds, as the JAX package's do."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = L.embed_apply(model.embed, cfg, tokens)
+    x = constrain(L.embed_apply(model.embed, cfg, tokens), "acts")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == Family.SSM:
         x = _ssm_stack(model, cfg, x, cache)
@@ -465,11 +634,80 @@ def forward(model: Model, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
 # --------------------------------------------------------------------------- #
 
 
+def _xent_sharded(logits, labels):
+    """``chunk_loss`` of DTensor logits split over the vocabulary: the
+    log-sum-exp from a max and a sum over the split dim (two small
+    all-reduces, where ``torch.logsumexp`` would gather the logits), the
+    label's logit from DTensor's masked gather."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = logits.device_mesh
+    rows = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in logits.placements)
+    # each token's terms are all-reduced whole on its batch shard (not
+    # reduce-scattered over the sequence), so the logits' gradient keeps
+    # the logits' layout
+    m = logits.detach().amax(-1, keepdim=True).redistribute(mesh, rows)
+    lse = (logits - m).exp().sum(-1, keepdim=True).redistribute(mesh, rows).log() + m
+    picked = _picked_sharded(logits, labels).redistribute(mesh, rows)
+    correct = _argmax_sharded(logits.detach()) == labels
+    return (lse - picked).sum(), correct.sum().float()
+
+
+def _picked_sharded(logits, labels):
+    """``logits.gather(-1, labels[..., None])`` of DTensor logits split over
+    the vocabulary, in a local region: each device reads the labels inside
+    its shard (zeros elsewhere), a partial sum over that mesh dim."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    split, ids, inside = L.vocab_local(logits, labels, -1)
+    local = logits.to_local()
+    picked = local.gather(-1, ids[..., None].long())
+    if inside is not None:
+        picked = picked * inside[..., None].to(picked.dtype)
+    pl = tuple(Partial() if i in split else p for i, p in enumerate(logits.placements))
+    shape = (*logits.shape[:-1], 1)
+    return DTensor.from_local(picked, logits.device_mesh, pl, run_check=False,
+                              shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+
+def _argmax_sharded(logits):
+    """``logits.argmax(-1)`` of a DTensor, its last dim split over at most
+    one mesh dim: each device's first maximum and its index, gathered over
+    that mesh dim, and the first maximum of those (the lowest index among
+    ties, as ``argmax``).  DTensor's own rule fails when the other dims are
+    split over two mesh dims."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    last = logits.ndim - 1
+    split = [i for i, p in enumerate(logits.placements)
+             if isinstance(p, Shard) and p.dim == last]
+    if not split:
+        return logits.argmax(dim=-1)
+    (md,) = split
+    mesh = logits.device_mesh
+    local = logits.to_local()
+    val, idx = local.max(-1)
+    n = mesh.size(md)
+    idx = idx + mesh.get_local_rank(md) * local.shape[-1]
+    gather = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
+    vals = gather(val, 0, (mesh, md)).reshape(n, *val.shape)
+    idxs = gather(idx, 0, (mesh, md)).reshape(n, *idx.shape)
+    pred = idxs.gather(0, vals.argmax(0)[None])[0]
+    pl = tuple(Replicate() if i == md else p for i, p in enumerate(logits.placements))
+    return DTensor.from_local(pred, mesh, pl, run_check=False,
+                              shape=logits.shape[:-1],
+                              stride=torch.empty(logits.shape[:-1], device="meta").stride())
+
+
 def _xent(model: Model, cfg: ModelConfig, hidden, labels):
     """Mean token cross-entropy; optionally chunked over sequence."""
 
     def chunk_loss(h_chunk, y_chunk):
-        logits = L.unembed_apply(model.embed, cfg, h_chunk).float()
+        logits = constrain(L.unembed_apply(model.embed, cfg, h_chunk), "logits").float()
+        if is_dtensor(logits):
+            return _xent_sharded(logits, y_chunk)
         lse = torch.logsumexp(logits, dim=-1)
         picked = logits.gather(-1, y_chunk[..., None].long())[..., 0]
         correct = logits.argmax(dim=-1) == y_chunk
@@ -564,7 +802,7 @@ def _ring_positions(positions: torch.Tensor, W: int) -> torch.Tensor:
     return positions - ((positions - slots) % W)
 
 
-@torch.inference_mode()
+@_without_autograd
 def decode_step(model: Model, cfg: ModelConfig, cache, tokens: torch.Tensor,
                 index):
     """One-token decode.  tokens: (B, 1); index: position of the new token in
@@ -638,7 +876,7 @@ def decode_step(model: Model, cfg: ModelConfig, cache, tokens: torch.Tensor,
     return cache, logits
 
 
-@torch.inference_mode()
+@_without_autograd
 def prefill(model: Model, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
             cache):
     """Run the full prompt, fill the cache, return (cache, last-token logits).

@@ -8,6 +8,15 @@ global batch is split into ``accum`` microbatches whose float32 gradients
 and losses are summed in order and divided by ``accum``, as the JAX
 package's ``lax.scan`` body does.
 
+On a mesh (DTensor parameters) the gradient of a parameter that is
+replicated over the data axes leaves ``torch.autograd.grad`` as a partial
+sum; ``reduce_grads`` reduces it once, to its AdamW moment's placements --
+an all-reduce where the moment is replicated as the parameter is, a
+reduce-scatter where ZeRO-1 shards the moment over "data" -- before
+AdamW reads it (each read of a partial sum would reduce it again).  Under
+FSDP a sharded parameter's gradient is reduce-scattered inside autograd
+and already has its moment's placements.
+
 A train state is ``{"params": Model, "opt": {"m", "v", "step"[, "ef"]}}``
 with the model's parameters requiring grad.  ``state_arrays`` and
 ``state_from_arrays`` convert it to and from the JAX package's checkpoint
@@ -23,6 +32,7 @@ from typing import Dict, Mapping, Tuple
 import torch
 
 from repro_torch.core.kernels_xp import resolve_device
+from repro_torch.distributed.place import full, is_dtensor
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
@@ -54,6 +64,19 @@ def loss_and_grads(model: T.Model, cfg: ModelConfig, batch: Mapping[str, torch.T
     return total.detach(), metrics, grads
 
 
+def reduce_grads(grads: Mapping[str, torch.Tensor],
+                 moments: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Each DTensor gradient redistributed once to its moment's placements
+    (module docstring); any other gradient as it is."""
+    out = {}
+    for k, g in grads.items():
+        m = moments[k]
+        if is_dtensor(g) and tuple(g.placements) != tuple(m.placements):
+            g = g.redistribute(m.device_mesh, m.placements)
+        out[k] = g
+    return out
+
+
 def make_train_step(cfg: ModelConfig, oc: adamw.OptimizerConfig, accum: int = 1):
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor]):
         model = state["params"]
@@ -61,12 +84,12 @@ def make_train_step(cfg: ModelConfig, oc: adamw.OptimizerConfig, accum: int = 1)
         if accum > 1:
             micro = [{k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i]
                       for k, v in batch.items()} for i in range(accum)]
-            grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for k, p in params.items()}
+            grads = {k: torch.zeros_like(state["opt"]["m"][k]) for k in params}
             loss = torch.zeros((), dtype=torch.float32, device=model.device)
             per_micro = []
             for mb in micro:
                 mb_loss, metrics, mb_grads = loss_and_grads(model, cfg, mb)
+                mb_grads = reduce_grads(mb_grads, state["opt"]["m"])
                 grads = {k: grads[k] + mb_grads[k] for k in grads}
                 loss = loss + mb_loss
                 per_micro.append(metrics)
@@ -76,6 +99,7 @@ def make_train_step(cfg: ModelConfig, oc: adamw.OptimizerConfig, accum: int = 1)
                        for k in per_micro[0]}
         else:
             loss, metrics, grads = loss_and_grads(model, cfg, batch)
+            grads = reduce_grads(grads, state["opt"]["m"])
         _, new_opt, stats = adamw.update(grads, state["opt"], params, oc)
         metrics = dict(metrics)
         metrics.update(stats)
@@ -108,17 +132,18 @@ def _stacked(tree: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, torch.T
     for key, items in groups.items():
         items.sort(key=lambda it: it[0])
         if not items[0][0]:
-            out[f"{prefix}/{key}"] = items[0][1].detach()
+            out[f"{prefix}/{key}"] = full(items[0][1].detach())
             continue
         lead = tuple(max(idx[d] for idx, _ in items) + 1
                      for d in range(len(items[0][0])))
         out[f"{prefix}/{key}"] = torch.stack(
-            [t.detach() for _, t in items]).reshape(*lead, *items[0][1].shape)
+            [full(t.detach()) for _, t in items]).reshape(*lead, *items[0][1].shape)
     return out
 
 
 def state_arrays(state: TrainState) -> Dict[str, torch.Tensor]:
-    """The state as the JAX package's checkpoint leaves, keyed by path."""
+    """The state as the JAX package's checkpoint leaves, keyed by path; a
+    sharded state's leaves are gathered whole (every rank calls it)."""
     opt = state["opt"]
     out = _stacked(adamw.params_of(state["params"]), "params")
     for part in ("m", "v", "ef"):

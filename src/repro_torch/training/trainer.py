@@ -1,6 +1,12 @@
 """Fault-tolerant training driver.
 
-The JAX package's ``repro/training/trainer.py`` on one device:
+The JAX package's ``repro/training/trainer.py``, on one device or, with
+``mesh`` (and ``sharding``, a ``distributed.sharding.ShardingConfig``), on
+a ``DeviceMesh`` of the process group's ranks: the state is drawn (or
+restored) whole on every rank and sharded by the rules
+(``distributed.place.shard_state``), the batches split over the data
+axes, and each step runs under the activation rules; checkpoints are
+gathered whole and written by rank 0.
   * checkpoint/restart -- atomic checkpoints every N steps and of the last
     step (async writer; the JAX package's writes the last step's twice when
     N divides the step count, the port once);
@@ -23,6 +29,7 @@ A step's time is taken on the host clock after its metrics are read back
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import tempfile
@@ -34,6 +41,9 @@ import torch
 from repro_torch.checkpoint import store
 from repro_torch.core.kernels_xp import resolve_device
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.distributed import ctx as CTX
+from repro_torch.distributed import place as PL
+from repro_torch.distributed import sharding as SH
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 from repro_torch.training.step import (
@@ -90,6 +100,8 @@ class Trainer:
         device="cuda",
         failure_injector: Optional[FailureInjector] = None,
         on_straggler: Optional[Callable[[int, float, float], None]] = None,
+        mesh=None,
+        sharding=None,
     ):
         self.cfg = cfg
         self.tc = tc
@@ -106,12 +118,40 @@ class Trainer:
         self._step = make_train_step(cfg, self.oc, accum=tc.accum)
         self.metrics_log: List[Dict[str, float]] = []
         self.restarts = 0
+        self.mesh = mesh
+        self.sharding = sharding
+        if mesh is not None and sharding is None:
+            from repro_torch.distributed.sharding import ShardingConfig
+
+            self.sharding = ShardingConfig()
 
     # ------------------------------------------------------------------ #
 
     def _fresh_state(self):
         gen = torch.Generator(self.device).manual_seed(self.seed)
-        return init_state(self.cfg, self.oc, generator=gen, device=self.device)
+        return self._place(init_state(self.cfg, self.oc, generator=gen,
+                                      device=self.device))
+
+    def _place(self, state):
+        """``state`` sharded onto the trainer's mesh (every rank draws or
+        restores the same whole state and keeps its shards)."""
+        if self.mesh is not None:
+            PL.shard_state(self.cfg, state["params"], self.mesh, self.sharding, state)
+        return state
+
+    def _sharded(self):
+        """The step's context: the activation rules on a mesh."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(PL.sharded_step())
+        stack.enter_context(CTX.use_rules(
+            SH.activation_rules(self.mesh, self.sharding, kind="train")))
+        return stack
+
+    def _writes(self) -> bool:
+        """True on the rank that writes checkpoints (rank 0 of a mesh)."""
+        return self.mesh is None or self.mesh.get_rank() == 0
 
     def _restore_or_init(self):
         # a restart waits for the save in flight, so that it resumes from
@@ -123,7 +163,12 @@ class Trainer:
             return self._fresh_state(), 0
         arrays, extra = store.restore_tensors(self.tc.checkpoint_dir, step=latest)
         state = state_from_arrays(self.cfg, arrays, self.oc, self.device)
-        return state, int(extra["step"])
+        return self._place(state), int(extra["step"])
+
+    def _save(self, step: int, state, extra) -> None:
+        arrays = state_arrays(state)   # every rank gathers; one writes
+        if self._writes():
+            self.ckpt.save(step, arrays, extra=extra)
 
     def _track_step_time(self, step: int, dt: float) -> None:
         st = self.stragglers
@@ -138,9 +183,13 @@ class Trainer:
         st.ewma = (1 - self.tc.ewma_alpha) * st.ewma + self.tc.ewma_alpha * dt
 
     def batch(self, step: int) -> Dict[str, torch.Tensor]:
-        """The data pipeline's batch ``step`` on the trainer's device."""
-        return {k: torch.as_tensor(v).to(self.device)
-                for k, v in self.data.batch(step).items()}
+        """The data pipeline's batch ``step`` on the trainer's device (split
+        over the mesh's data axes on a mesh)."""
+        batch = {k: torch.as_tensor(v).to(self.device)
+                 for k, v in self.data.batch(step).items()}
+        if self.mesh is not None:
+            batch = PL.shard_batch(batch, self.mesh, self.sharding)
+        return batch
 
     # ------------------------------------------------------------------ #
 
@@ -168,8 +217,9 @@ class Trainer:
             if self.failure_injector:
                 self.failure_injector.maybe_fail(step)
             t0 = time.perf_counter()
-            state, metrics = self._step(state, batch)
-            metrics = {k: float(v) for k, v in metrics.items()}
+            with self._sharded():
+                state, metrics = self._step(state, batch)
+                metrics = {k: float(PL.full(v)) for k, v in metrics.items()}
             dt = time.perf_counter() - t0
             self._track_step_time(step, dt)
             metrics["step"] = step
@@ -180,11 +230,10 @@ class Trainer:
                 print(f"[trainer] step {step}: loss={metrics['loss']:.4f} "
                       f"acc={metrics['accuracy']:.3f} {dt*1e3:.0f}ms")
             if step % self.tc.checkpoint_every == 0:
-                self.ckpt.save(step, state_arrays(state),
-                               extra={"loss": metrics["loss"]})
+                self._save(step, state, extra={"loss": metrics["loss"]})
                 saved = step
         if saved != self.tc.total_steps:   # the last step's, unless just saved
-            self.ckpt.save(self.tc.total_steps, state_arrays(state), extra={})
+            self._save(self.tc.total_steps, state, extra={})
         self.ckpt.wait()
         return {
             "final_state": state,

@@ -235,7 +235,7 @@ def test_codesign_sweep_matches_reference(RH, i):
 # --------------------------------------------------------------------------- #
 
 SMOKE_ARGS = ["--arch", "chatglm3-6b", "--shape", "zoo_smoke_train_s128_b8",
-              "--smoke", "--extract-device", "cpu", "--device", "cpu"]
+              "--smoke", "--mesh", "1x1", "--extract-device", "cpu", "--device", "cpu"]
 MAIN_CODESIGN = ["--sweep", "64", "--grad", "5", "--area-budget", "0.3",
                  "--sensitivities"]
 
@@ -450,14 +450,38 @@ def test_the_measured_state_term_equals_the_count_by_hand(state_dim, seq, batch)
 # --------------------------------------------------------------------------- #
 
 
+JOINT_ARGS = ["--arch", "chatglm3-6b", "--shape", "zoo_smoke_train_s128_b8",
+              "--smoke", "--mesh", "2x2", "--device", "cpu", "--joint"]
+
+
 @pytest.mark.parametrize("extra", [[], ["--grad", "5"],
                                    ["--grad", "5", "--area-budget", "1.0"]])
-def test_joint_waits_for_the_multi_device_layer(capsys, extra):
-    with pytest.raises(SystemExit) as exc:
-        HC.main(SMOKE_ARGS + ["--joint"] + extra)
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "sharding variants" in err and "distributed" in err
+def test_joint_runs_on_a_small_mesh(tmp_path, extra):
+    """``--joint`` profiles the cell per device under tp / zero1 / fsdp on a
+    (2, 2) mesh (in its own process: the fake world owns it) and descends
+    over the three; without ``--grad`` it is refused as in the JAX
+    launcher."""
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.hillclimb", *JOINT_ARGS,
+         *extra, "--out", str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=600, cwd=ROOT)
+    if not extra:
+        assert out.returncode == 2 and "--joint" in out.stderr, out.stderr[-2000:]
+        return
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert "joint codesign over 3 shardings" in out.stdout
+    prof = WorkloadProfile.load(str(
+        tmp_path / "chatglm3-smoke__zoo_smoke_train_s128_b8__2x2__zero1__flash.json"))
+    assert prof.num_devices == 4 and prof.total_collective_bytes > 0
+    jd = prof.meta["joint_codesign"]
+    assert len(jd["selection"]) == len(jd["variants"]) == 3
+    for v in jd["variants"]:
+        assert v["objective_final"] <= v["objective_seed"] + 1e-12
+    if "--area-budget" in extra:
+        assert jd["feasibility"]["area_budget"] == 1.0
 
 
 @pytest.mark.parametrize("arch,mode,msg", [
@@ -482,13 +506,18 @@ def test_a_pallas_config_is_refused():
         HC.scan_state_bytes(ssm.replace(attn_impl="pallas"), sshape)
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "16x16"], ["--variant", "tp"],
-                                  ["--sp", "on"]])
+@pytest.mark.parametrize("flag", [["--mesh", "16x16"], ["--variant", "tp"], None])
 def test_a_flag_of_the_multi_device_launcher_is_refused_at_parse_time(capsys, flag):
+    """A mesh needs the dry run's device (SMOKE_ARGS extract on the CPU),
+    and ``--variant`` needs a mesh.  Without ``--mesh 1x1`` (``None``) the
+    launcher takes the pod mesh, as the JAX launcher defaults to it, and
+    refuses the CPU's extraction the same way."""
+    argv = SMOKE_ARGS + flag if flag else [a for a in SMOKE_ARGS if a not in ("--mesh", "1x1")]
     with pytest.raises(SystemExit) as exc:
-        HC.main(SMOKE_ARGS + flag)
+        HC.main(argv)
     assert exc.value.code == 2
-    assert f"unrecognized arguments: {' '.join(flag)}" in capsys.readouterr().err
+    assert ("--variant shards the cell over a mesh" if flag and flag[0] == "--variant"
+            else "placeholder devices exist on meta only") in capsys.readouterr().err
 
 
 def test_an_unknown_backend_is_refused_at_parse_time(capsys):

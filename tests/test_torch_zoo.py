@@ -23,6 +23,8 @@ CPU.
 * a small MoE (qwen2-moe's smoke config) counts the same on ``meta`` as on
   the CPU under the default ``gmm`` dispatch (every expert gets rows); the
   tracker's peak, which follows the split's temporaries, within 1e-3;
+* full cells (chatglm3-6b's decode grid) extract per device on the pod
+  mesh, as the JAX package's do, and as one device only when asked;
 * the port's checked-in goldens (``zoo_cache_torch/``) are fresh: their
   fingerprints match and a re-extraction on ``meta`` under the torch
   version that wrote them is byte for byte.
@@ -259,8 +261,10 @@ def test_smoke_suite_loads_from_the_port_cache():
 
 
 def test_full_cells_extract_on_meta_and_resolve_cache_only(tmp_path, monkeypatch):
-    """chatglm3-6b's four decode cells at published width on ``meta``, then
-    the cache-only ``zoo`` suite reads them back."""
+    """chatglm3-6b's four decode cells at published width on ``meta``, per
+    device on the pod mesh under the default variant (zero1), as the JAX
+    package extracts its full cells; then the cache-only ``zoo`` suite
+    reads them back."""
     got = PZ.profiles_from_configs(archs=("chatglm3-6b",), scenarios=("serve-decode",),
                                    cache_dir=str(tmp_path), device="meta")
     ref_cells = RZ.zoo_cells(archs=("chatglm3-6b",), scenarios=("serve-decode",))
@@ -269,13 +273,28 @@ def test_full_cells_extract_on_meta_and_resolve_cache_only(tmp_path, monkeypatch
         assert p.meta["fingerprint"] == RZ.cell_fingerprint(c)
         assert (p.params, p.params_active, p.tokens) == (total, active, c.shape.global_batch)
         assert p.model_flops == 2.0 * active * c.shape.global_batch
-        assert p.dot_flops > 2.0 * active * c.shape.global_batch * 0.9
+        assert (p.num_devices, p.mesh, p.meta["variant"]) == (256, "pod16x16", "zero1")
+        assert p.total_collective_bytes > 0 and p.pod_collective_bytes == 0
+        assert p.dot_flops * p.num_devices > 2.0 * active * c.shape.global_batch * 0.9
     again = PZ.profiles_from_configs(archs=("chatglm3-6b",), scenarios=("serve-decode",),
                                      cache_dir=str(tmp_path), extract_missing=False)
     assert [p.to_json() for p in again] == [p.to_json() for p in got]
     monkeypatch.setattr(PZ, "FULL_CACHE_DIR", str(tmp_path))
     with pytest.raises(RuntimeError, match="is missing"):
         P.resolve_suite("zoo:serve-decode")   # the other archs are not cached
+
+
+def test_a_full_cell_runs_as_one_device_only_when_asked():
+    """``mesh="1x1"`` profiles a full cell as one device; the pod mesh is
+    refused off ``meta`` and beside a model's weights, never run smaller."""
+    cell = next(c for c in PZ.zoo_cells(archs=("chatglm3-6b",), scenarios=("serve-decode",)))
+    one = PZ.extract_profile(cell, device="meta", mesh="1x1")
+    assert (one.num_devices, one.mesh, one.total_collective_bytes) == (1, "1x1", 0.0)
+    total, active = C.get_config("chatglm3-6b").param_counts()
+    assert one.dot_flops > 2.0 * active * cell.shape.global_batch * 0.9
+    for kw in ({"device": "cpu"}, {"device": "meta", "model": object()}):
+        with pytest.raises(ValueError, match="meta only"):
+            PZ.extract_profile(cell, **kw)
 
 
 def test_model_zoo_cli_extracts_and_reports(tmp_path, capsys):
