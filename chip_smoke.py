@@ -55,8 +55,9 @@ Phases (any failure raises and the exit code is not 0):
      FMA kernel on the same tensors); and, held then timed in bf16, phases
      13-15's shapes (``FAMILY_FA``): qwen2-moe-a2.7b's (H 16, K 16, S 2048,
      D 128), recurrentgemma-9b's (H 16, K 1, S 2048, D 256, window 2048,
-     with the FMA kernel on the same tensors) and whisper-medium's decoder
-     (H 16, K 16, S 448, D 64), B 4;
+     with the FMA kernel on the same tensors), whisper-medium's decoder
+     (H 16, K 16, S 448, D 64) and phase 23's qwen3-32b (H 64, K 8, S 2048,
+     D 128) and qwen1.5-4b (H 20, K 20, S 2048, D 128), B 4;
   7. main path, the model stack: chatglm3-6b at full width and depth
      (28 layers, weights drawn on the card, bf16 compute), ``forward`` and
      ``loss_fn`` on 4 x 2048 seeded tokens with ``attn_impl="pallas"`` (28
@@ -212,7 +213,23 @@ Phases (any failure raises and the exit code is not 0):
      of chatglm3-6b's width at 2 layers sharded on a 1 x 1 mesh against the
      unsharded step (loss 1e-6 relative, every gradient 1e-5 of the
      largest);
- 22. the kernels line, the card, and the result line.
+ 22. the model kernels on a mesh, in phase 21 (c)'s NCCL world: chatglm3-6b
+     (2 layers), falcon-mamba-7b (2 layers) and recurrentgemma-9b (3
+     layers: one group) at published width, bf16, ``attn_impl="pallas"``,
+     4 x 2048 tokens, on a 1 x 1 ``("data", "model")`` mesh under ``tp``:
+     a forward, a prefill and one decode step, K5-K8 on each device's local
+     tensors, against the same unsharded kernel runs -- bit for bit, or
+     else within max(2e-2, 1.5 x the plain path's distance from f32) -- with
+     the launches of each held exactly (K5 a layer that takes it, K6 once
+     and K7 and K8 once a layer of each SSM call); the sharded and unsharded
+     forwards timed;
+ 23. qwen3-32b (64 layers, d_model 5120, GQA 64 / 8, bf16 weights, 65.5
+     GB) and qwen1.5-4b (40 layers, MHA 20 / 20, QKV bias, f32 weights) at
+     published width and depth, one at a time, 4 x 2048 tokens, bf16
+     compute: the K5 forward (64 and 40 launches) against the plain
+     attention, prefill + decode_step against the forward in f32, the
+     forward timed with its ``torch.profiler`` split;
+ 24. the kernels line, the card, and the result line.
 
 It needs one CUDA card, the CUDA toolkit's nvcc and the repository's
 ``src/`` tree; without them it exits with an error and prints no result.
@@ -220,6 +237,7 @@ It needs one CUDA card, the CUDA toolkit's nvcc and the repository's
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -294,11 +312,13 @@ FA_SEQ = (1, 63, 64, 65, 79, 80, 81, 127, 128, 129, 159, 160, 161, 255, 256, 257
 #: paligemma-3b's attention (B 4, H 8, K 1, S = T 2048, D 256, causal),
 #: timed in f32 (the FMA kernel) and bf16 (the tensor cores)
 PALIGEMMA_FA = (4, 8, 1, 2048, 256)
-#: the K5 shapes of phases 13-15's forwards, held and timed in phase 6:
-#: (arch, B, H, K, S, D, window), bf16, causal
+#: the K5 shapes of phases 13-15's and 23's forwards, held and timed in
+#: phase 6: (arch, B, H, K, S, D, window), bf16, causal
 FAMILY_FA = (("qwen2-moe-a2.7b", 4, 16, 16, 2048, 128, None),
              ("recurrentgemma-9b", 4, 16, 1, 2048, 256, 2048),
-             ("whisper-medium", 4, 16, 16, 448, 64, None))
+             ("whisper-medium", 4, 16, 16, 448, 64, None),
+             ("qwen3-32b", 4, 64, 8, 2048, 128, None),
+             ("qwen1.5-4b", 4, 20, 20, 2048, 128, None))
 #: The model path: chatglm3-6b, B x S tokens in bf16 compute; the decode
 #: step is timed over a cache of DECODE_CACHE positions.
 MODEL_ARCH, MODEL_B, MODEL_S, DECODE_CACHE = "chatglm3-6b", 4, 2048, 2048
@@ -2616,6 +2636,24 @@ def _greedy_decode(torch, T, model, cfg, prompt, n, max_len, dev):
     return out
 
 
+def prefill_decode_hold(torch, T, L, model, cfg32, dev, n):
+    """``prefill`` of 63 tokens + one ``decode_step`` against the forward's
+    last two logits, B 2, in ``cfg32`` (f32 compute): 1e-4 of max |logit|."""
+    B, S = 2, 64
+    batch = family_batch(torch, cfg32, dev, B, S, seed=2)
+    hidden, _ = T.forward(model, cfg32, batch)
+    full = L.unembed_apply(model.embed, cfg32, hidden[:, -2:])
+    cache = T.init_cache(cfg32, B, S, device=dev)
+    cache, last = T.prefill(model, cfg32, prompt_of(batch, S - 1), cache)
+    cache, logits = T.decode_step(model, cfg32, cache, batch["tokens"][:, S - 1:], S - 1)
+    err = max(float((got - want).abs().max() / (want.abs().max() + 1e-6))
+              for got, want in ((logits[:, 0], full[:, 1]), (last[:, 0], full[:, 0])))
+    log(f"phase {n}: prefill({S - 1}) + decode_step == forward's last logits in "
+        f"f32: {err:.3e} of max |logit| (limit {DECODE_RTOL})")
+    check(logits.shape == (B, 1, cfg32.vocab_size) and err <= DECODE_RTOL,
+          f"decode differs from the forward by {err:.3e}")
+
+
 def phase_family_serving(torch, FA, T, E, L, model, cfg, dev, spec):
     n, arch = spec["phase"], spec["arch"]
     kc = cfg.replace(attn_impl="pallas")
@@ -2645,20 +2683,9 @@ def phase_family_serving(torch, FA, T, E, L, model, cfg, dev, spec):
             f"{max(errs):.3e} of max |logit| (limit {DECODE_RTOL}; by step "
             f"{[f'{e:.2e}' for e in errs]})")
         check(max(errs) <= DECODE_RTOL, f"decode differs from the forward by {max(errs):.3e}")
+        del batch, full, cache, logits
     else:
-        B, S = 2, 64
-        batch = family_batch(torch, cfg, dev, B, S, seed=2)
-        hidden, _ = T.forward(model, cfg32, batch)
-        full = L.unembed_apply(model.embed, cfg32, hidden[:, -2:])
-        cache = T.init_cache(cfg32, B, S, device=dev)
-        cache, last = T.prefill(model, cfg32, prompt_of(batch, S - 1), cache)
-        cache, logits = T.decode_step(model, cfg32, cache, batch["tokens"][:, S - 1:], S - 1)
-        err = max(rel(logits[:, 0], full[:, 1]), rel(last[:, 0], full[:, 0]))
-        log(f"phase {n}: prefill({S - 1}) + decode_step == forward's last logits in "
-            f"f32: {err:.3e} of max |logit| (limit {DECODE_RTOL})")
-        check(logits.shape == (B, 1, cfg.vocab_size) and err <= DECODE_RTOL,
-              f"decode differs from the forward by {err:.3e}")
-    del batch, full, cache, logits
+        prefill_decode_hold(torch, T, L, model, cfg32, dev, n)
 
     # the decode step at B 4 over a cache of spec["decode_cache"] positions
     D = spec["decode_cache"]
@@ -4108,11 +4135,10 @@ def _p21_joint(torch, core, KC, dev):
 
 
 def _p21_nccl(torch, core, KC, dev, profiles):
-    """(c): a real NCCL world of the card(s) in this process: shard_sweep over
-    the variants mesh against the meshless run, and a train step sharded on
-    a 1 x 1 mesh against the unsharded step."""
+    """(c), in the NCCL world of the card that ``_main`` runs phases 21-22
+    in: shard_sweep over the variants mesh against the meshless run, and a
+    train step sharded on a 1 x 1 mesh against the unsharded step."""
     import numpy as np
-    import torch.distributed as dist
     from repro_torch import configs as C
     from repro_torch.distributed import ctx as CTX
     from repro_torch.distributed import place as PL
@@ -4121,82 +4147,76 @@ def _p21_nccl(torch, core, KC, dev, profiles):
     from repro_torch.optim import adamw
     from repro_torch.training.step import init_state, loss_and_grads, make_train_step
 
-    n = torch.cuda.device_count()
-    check(n == 1, f"phase 21 (c) runs one process, so one card; {n} are visible")
-    store = os.path.join(_p21_dir(), "nccl.store")
-    MESH.init_world(P21_BACKEND, init_method=f"file://{store}", rank=0, world_size=n)
-    try:
-        vmesh = MESH.make_variant_mesh()
-        kw = dict(n=P21_SWEEP_N, include_named=core.VARIANTS, num_shards=4,
-                  device=dev)
-        plain = core.shard_sweep(profiles, **kw)
-        KC.reset_launch_counts()
-        split = core.shard_sweep(profiles, mesh=vmesh, **kw)
-        torch.cuda.synchronize()
-        counts = KC.launch_counts()
-        check(split.mesh_axis == f"variants={n} mesh",
-              f"phase 21 (c): mesh_axis {split.mesh_axis!r}")
-        check(counts["sweep_stats"] == split.num_shards,
-              f"phase 21 (c): K4 launches {counts['sweep_stats']} for {split.num_shards} shards")
-        check(split.candidate_indices.tolist() == plain.candidate_indices.tolist(),
-              "phase 21 (c): the survivors differ from the meshless run")
-        check(split.best_fit_map == plain.best_fit_map,
-              "phase 21 (c): best fits differ from the meshless run")
-        check(split.pareto_names() == plain.pareto_names(),
-              "phase 21 (c): the fronts differ from the meshless run")
-        check(bool(np.array_equal(split.result.aggregate, plain.result.aggregate,
-                                  equal_nan=True)),
-              "phase 21 (c): the re-scored survivors differ from the meshless run")
+    n = MESH.world_size()
+    vmesh = MESH.make_variant_mesh()
+    kw = dict(n=P21_SWEEP_N, include_named=core.VARIANTS, num_shards=4,
+              device=dev)
+    plain = core.shard_sweep(profiles, **kw)
+    KC.reset_launch_counts()
+    split = core.shard_sweep(profiles, mesh=vmesh, **kw)
+    torch.cuda.synchronize()
+    counts = KC.launch_counts()
+    check(split.mesh_axis == f"variants={n} mesh",
+          f"phase 21 (c): mesh_axis {split.mesh_axis!r}")
+    check(counts["sweep_stats"] == split.num_shards,
+          f"phase 21 (c): K4 launches {counts['sweep_stats']} for {split.num_shards} shards")
+    check(split.candidate_indices.tolist() == plain.candidate_indices.tolist(),
+          "phase 21 (c): the survivors differ from the meshless run")
+    check(split.best_fit_map == plain.best_fit_map,
+          "phase 21 (c): best fits differ from the meshless run")
+    check(split.pareto_names() == plain.pareto_names(),
+          "phase 21 (c): the fronts differ from the meshless run")
+    check(bool(np.array_equal(split.result.aggregate, plain.result.aggregate,
+                              equal_nan=True)),
+          "phase 21 (c): the re-scored survivors differ from the meshless run")
 
-        cfg = C.get_config(HC_ARCH).replace(n_layers=P21_TRAIN_LAYERS,
-                                            compute_dtype="float32")
-        oc = adamw.OptimizerConfig(warmup_steps=1, total_steps=10)
-        step = make_train_step(cfg, oc)
-        gen = torch.Generator(dev).manual_seed(5)
-        batch = {k: torch.randint(0, cfg.vocab_size, (P21_TRAIN_B, P21_TRAIN_S),
-                                  generator=gen, device=dev) for k in ("tokens", "labels")}
-        state = init_state(cfg, oc, device=dev)
-        g_plain = loss_and_grads(state["params"], cfg, batch)[2]
+    cfg = C.get_config(HC_ARCH).replace(n_layers=P21_TRAIN_LAYERS,
+                                        compute_dtype="float32")
+    oc = adamw.OptimizerConfig(warmup_steps=1, total_steps=10)
+    step = make_train_step(cfg, oc)
+    gen = torch.Generator(dev).manual_seed(5)
+    batch = {k: torch.randint(0, cfg.vocab_size, (P21_TRAIN_B, P21_TRAIN_S),
+                              generator=gen, device=dev) for k in ("tokens", "labels")}
+    state = init_state(cfg, oc, device=dev)
+    g_plain = loss_and_grads(state["params"], cfg, batch)[2]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m_plain = step(state, batch)
+    loss_plain = float(m_plain["loss"])
+    plain_s = time.perf_counter() - t0
+    del state
+    torch.cuda.empty_cache()
+    mesh = MESH.make_mesh((1, 1), ("data", "model"))
+    sc = SH.ShardingConfig(variant="zero1")
+    state = init_state(cfg, oc, device=dev)
+    PL.shard_state(cfg, state["params"], mesh, sc, state)
+    sb = PL.shard_batch(batch, mesh, sc)
+    with PL.sharded_step(), CTX.use_rules(SH.activation_rules(mesh, sc, "train")):
+        g = loss_and_grads(state["params"], cfg, sb)[2]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, m_plain = step(state, batch)
-        loss_plain = float(m_plain["loss"])
-        plain_s = time.perf_counter() - t0
-        del state
-        torch.cuda.empty_cache()
-        mesh = MESH.make_mesh((1, 1), ("data", "model"))
-        sc = SH.ShardingConfig(variant="zero1")
-        state = init_state(cfg, oc, device=dev)
-        PL.shard_state(cfg, state["params"], mesh, sc, state)
-        sb = PL.shard_batch(batch, mesh, sc)
-        with PL.sharded_step(), CTX.use_rules(SH.activation_rules(mesh, sc, "train")):
-            g = loss_and_grads(state["params"], cfg, sb)[2]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, m = step(state, sb)
-            loss = float(PL.full(m["loss"]))
-            torch.cuda.synchronize()
-        sharded_s = time.perf_counter() - t0
-        scale = max(float(t.abs().max()) for t in g_plain.values())
-        grad_err = max(float((PL.full(g[k]) - g_plain[k]).abs().max())
-                       for k in g_plain) / scale
-        rel_loss = abs(loss - loss_plain) / abs(loss_plain)
-        check(rel_loss <= 1e-6, f"phase 21 (c): sharded loss {loss!r} against "
-              f"unsharded {loss_plain!r} ({rel_loss:.3e} relative)")
-        check(grad_err <= P21_GRAD_TOL, f"phase 21 (c): the sharded gradients are {grad_err:.3e} "
-              "off the unsharded ones (on the largest's scale)")
-        del state, g, g_plain
-        torch.cuda.empty_cache()
-        log(f"phase 21 (c): {P21_BACKEND} world of {n}: shard_sweep gen:64 x {split.num_variants} "
-            f"in {split.num_shards} shards on {split.mesh_axis} equal to the meshless run "
-            f"(survivors, best fits, front, re-scored aggregate bit for bit); "
-            f"{cfg.name} at {P21_TRAIN_LAYERS} layers, B {P21_TRAIN_B} S {P21_TRAIN_S}, "
-            f"f32: sharded step on 1x1 loss {loss!r} against {loss_plain!r} "
-            f"({rel_loss:.3e}), gradients {grad_err:.3e} off; step {sharded_s:.3f} s sharded, "
-            f"{plain_s:.3f} s plain; launches {counts}")
-        return dict(counts=counts)
-    finally:
-        dist.destroy_process_group()
+        _, m = step(state, sb)
+        loss = float(PL.full(m["loss"]))
+        torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    scale = max(float(t.abs().max()) for t in g_plain.values())
+    grad_err = max(float((PL.full(g[k]) - g_plain[k]).abs().max())
+                   for k in g_plain) / scale
+    rel_loss = abs(loss - loss_plain) / abs(loss_plain)
+    check(rel_loss <= 1e-6, f"phase 21 (c): sharded loss {loss!r} against "
+          f"unsharded {loss_plain!r} ({rel_loss:.3e} relative)")
+    check(grad_err <= P21_GRAD_TOL, f"phase 21 (c): the sharded gradients are {grad_err:.3e} "
+          "off the unsharded ones (on the largest's scale)")
+    del state, g, g_plain
+    torch.cuda.empty_cache()
+    log(f"phase 21 (c): {P21_BACKEND} world of {n}: shard_sweep gen:64 x {split.num_variants} "
+        f"in {split.num_shards} shards on {split.mesh_axis} equal to the meshless run "
+        f"(survivors, best fits, front, re-scored aggregate bit for bit); "
+        f"{cfg.name} at {P21_TRAIN_LAYERS} layers, B {P21_TRAIN_B} S {P21_TRAIN_S}, "
+        f"f32: sharded step on 1x1 loss {loss!r} against {loss_plain!r} "
+        f"({rel_loss:.3e}), gradients {grad_err:.3e} off; step {sharded_s:.3f} s sharded, "
+        f"{plain_s:.3f} s plain; launches {counts}")
+    return dict(counts=counts)
 
 
 def phase_sharded(torch, core, KC, dev, children, profiles):
@@ -4212,6 +4232,276 @@ def phase_sharded(torch, core, KC, dev, children, profiles):
     log(f"phase 21: {seconds:.1f} s ((a) waited {t_a:.1f} s for the dry runs, "
         f"(b) {b['seconds']:.1f} s); launches {counts}")
     return dict(counts=counts, seconds=seconds)
+
+
+@contextlib.contextmanager
+def nccl_world(torch):
+    """A real NCCL world of the card in this process, for phase 21 (c) and
+    phase 22."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as MESH
+
+    n = torch.cuda.device_count()
+    check(n == 1, f"phases 21 (c) and 22 run one process, so one card; {n} are visible")
+    os.makedirs(_p21_dir(), exist_ok=True)
+    store = os.path.join(_p21_dir(), "nccl.store")
+    MESH.init_world(P21_BACKEND, init_method=f"file://{store}", rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+# --------------------------------------------------------------------------- #
+# Phase 22: the model kernels K5-K8 in their local regions on a mesh
+# --------------------------------------------------------------------------- #
+
+#: (arch, layers): published width at cut depth; recurrentgemma-9b's 3
+#: layers are one group (two RG-LRU blocks and a local-attention block)
+P22_MODELS = (("chatglm3-6b", 2), ("falcon-mamba-7b", 2), ("recurrentgemma-9b", 3))
+P22_B, P22_S = 4, 2048
+P22_STAGES = ("forward", "prefill", "decode")
+MODEL_KERNELS = ("wgmma", "fma", "rmsnorm", "rmsnorm_residual", "selective_scan")
+
+
+def model_kernel_counts(FA, RN, SS):
+    return {"wgmma": FA.flash_attention.launches_wgmma,
+            "fma": FA.flash_attention.launches_fma, **ssm_counts(RN, SS)}
+
+
+def reset_model_kernel_counts(FA, RN, SS):
+    FA.reset_launch_counts()
+    reset_ssm_counts(RN, SS)
+
+
+def p22_launches_by_hand(T, cfg, stage):
+    """The model kernels' launches in one bf16 forward, prefill or decode
+    step under ``attn_impl="pallas"``: K5 (on the tensor cores) in each
+    causal self-attention without a cache -- each dense layer of a forward,
+    the hybrid's local-attention blocks in a forward or prefill -- and K6
+    once, K7 and K8 once a layer, in each SSM call."""
+    out = dict.fromkeys(MODEL_KERNELS, 0)
+    if cfg.family == "ssm":
+        out.update(rmsnorm=1, rmsnorm_residual=cfg.n_layers, selective_scan=cfg.n_layers)
+    elif cfg.family == "dense" and stage == "forward":
+        out["wgmma"] = cfg.n_layers
+    elif cfg.family == "hybrid" and stage != "decode":
+        out["wgmma"] = T.hybrid_layout(cfg)[0]
+    return out
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}{k}/")
+    else:
+        yield prefix.rstrip("/"), tree
+
+
+def phase_mesh_kernels(torch, FA, RN, SS, T, C, dev, card):
+    """Phase 22, in the NCCL world of ``nccl_world``."""
+    import numpy as np
+    from repro_torch.distributed import ctx as CTX
+    from repro_torch.distributed import place as PL
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch.specs import _shapes
+
+    mesh = MESH.make_mesh((1, 1), ("data", "model"))
+    sc = SH.ShardingConfig(variant="tp")
+    B, S = P22_B, P22_S
+    totals = dict.fromkeys(MODEL_KERNELS, 0)
+    t_phase = time.perf_counter()
+
+    def rules(stage, sharded):
+        if not sharded:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(PL.sharded_step())
+        stack.enter_context(CTX.use_rules(SH.activation_rules(
+            mesh, sc, "decode" if stage == "decode" else "prefill")))
+        return stack
+
+    def steps(model, cfg, batch, tok, cache, sharded=False):
+        """A forward, a prefill into ``cache`` and one decode step: -> (their
+        hidden states / logits and the cache, each stage's launches)."""
+        out, launches = {}, {}
+        for stage in P22_STAGES:
+            reset_model_kernel_counts(FA, RN, SS)
+            with rules(stage, sharded):
+                if stage == "forward":
+                    out[stage] = T.forward(model, cfg, batch)[0]
+                elif stage == "prefill":
+                    cache, out[stage] = T.prefill(model, cfg, batch, cache)
+                else:
+                    cache, out[stage] = T.decode_step(model, cfg, cache, tok, S)
+            torch.cuda.synchronize()
+            launches[stage] = model_kernel_counts(FA, RN, SS)
+        out.update(("cache/" + k, v) for k, v in _leaves(cache))
+        return out, launches
+
+    for arch, layers in P22_MODELS:
+        cfg = C.get_config(arch).replace(n_layers=layers, attn_impl="pallas")
+        check(cfg.compute_dtype == "bfloat16" and (cfg.family != "hybrid"
+                                                   or T.hybrid_layout(cfg) == (1, 0)),
+              f"phase 22: config {cfg}")
+        model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        batch = prompt_of(family_batch(torch, cfg, dev, B, S, seed=1), S)
+        tok = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab_size, (B, 1)),
+                              device=dev)
+        want = {stage: p22_launches_by_hand(T, cfg, stage) for stage in P22_STAGES}
+        check(sum(sum(w.values()) for w in want.values()) > 0,
+              f"phase 22: {arch} launches no model kernel")
+        # the plain path's distance from f32, for the bf16 hold
+        xla, xla32 = cfg.replace(attn_impl="xla"), cfg.replace(attn_impl="xla",
+                                                               compute_dtype="float32")
+        plain, _ = steps(model, xla, batch, tok, T.init_cache(xla, B, S + 1, device=dev))
+        ref32, _ = steps(model, xla32, batch, tok, T.init_cache(xla32, B, S + 1, device=dev))
+        noise = {k: rel(plain[k], ref32[k]) for k in plain}
+        del plain, ref32
+        whole, whole_launches = steps(model, cfg, batch, tok,
+                                      T.init_cache(cfg, B, S + 1, device=dev))
+        check(whole_launches == want, f"phase 22: {arch} unsharded launches "
+              f"{whole_launches}, not {want}")
+        fwd_ms = cuda_ms(torch, lambda: T.forward(model, cfg, batch), reps=1, rounds=3)
+
+        PL.shard_state(cfg, model, mesh, sc)
+        sb = PL.shard_batch(batch, mesh, sc)
+        tok_s = PL.shard_batch({"t": tok}, mesh, sc)["t"]
+        cache = T.init_cache(cfg, B, S + 1, device=dev)
+        cache = PL.shard_tree(cache, SH.param_specs(_shapes(cache), T.cache_axes(cfg), mesh,
+                                                    sc, fsdp=False), mesh)
+        split, split_launches = steps(model, cfg, sb, tok_s, cache, sharded=True)
+        check(split_launches == want, f"phase 22: {arch} sharded launches "
+              f"{split_launches}, not {want}")
+
+        def sharded_forward():
+            with rules("forward", True):
+                return T.forward(model, cfg, sb)
+
+        split_ms = cuda_ms(torch, sharded_forward, reps=1, rounds=3)
+        got = {k: PL.full(v) for k, v in split.items()}
+        check(all(bool(torch.isfinite(v.float()).all()) and v.shape == whole[k].shape
+                  and v.dtype == whole[k].dtype for k, v in got.items()),
+              f"phase 22: {arch}: a sharded output is not finite or not shaped as "
+              "the unsharded one")
+        if all(torch.equal(v, whole[k]) for k, v in got.items()):
+            held = "bit for bit"
+        else:
+            errs = {k: rel(v, whole[k]) for k, v in got.items()}
+            limits = {k: max(HIDDEN_RTOL, BF16_NOISE_FACTOR * noise[k]) for k in errs}
+            held = (f"within max({HIDDEN_RTOL}, {BF16_NOISE_FACTOR} x the plain path's "
+                    f"distance from f32): " + ", ".join(
+                        f"{k} {errs[k]:.3e} (limit {limits[k]:.3e})" for k in errs))
+            bad = [k for k in errs if not errs[k] <= limits[k]]
+            check(not bad, f"phase 22: {arch}: sharded {bad} differ from the unsharded "
+                  f"kernel run: {held}")
+        for launches in (whole_launches, split_launches):
+            for stage in P22_STAGES:
+                for k in MODEL_KERNELS:
+                    totals[k] += launches[stage][k]
+        log(f"phase 22: {arch} at {layers} layers (published width), B {B} S {S}, bf16, "
+            f"pallas, on a 1x1 (data, model) mesh under tp: forward, prefill and decode "
+            f"step (logits, cache) equal to the unsharded kernel run {held}; launches "
+            f"by stage, sharded {split_launches} (held exactly, as unsharded)")
+        log(json.dumps({"timing": "mesh_forward", "arch": arch, "layers": layers, "B": B,
+                        "S": S, "compute_dtype": "bfloat16", "attn_impl": "pallas",
+                        "mesh": "1x1", "unsharded_ms": fwd_ms, "sharded_ms": split_ms,
+                        "card": card}))
+        del model, batch, sb, cache, split, got, whole
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 22: {seconds:.1f} s; launches {totals}")
+    return dict(counts=totals, seconds=seconds)
+
+
+# --------------------------------------------------------------------------- #
+# Phase 23: qwen3-32b and qwen1.5-4b at published size through K5
+# --------------------------------------------------------------------------- #
+
+#: (arch, B, its published (n_layers, d_model, n_heads, n_kv_heads,
+#: head_dim, param_dtype)).  qwen3-32b at B 4, reckoned before its first
+#: run: 65.5 GB of bf16 weights; the K5 forward's activations near 2 GB a
+#: layer (the MLP's 8192 x 25600 products, 0.42 GB each in bf16); the plain
+#: f32 forward's near 8 GB (a 1024-row chunk of f32 scores, 2.1 GB, a few
+#: times over, and a layer's weights cast to f32): under the card's 80 GB.
+P23_MODELS = (("qwen3-32b", 4, (64, 5120, 64, 8, 128, "bfloat16")),
+              ("qwen1.5-4b", 4, (40, 2560, 20, 20, 128, "float32")))
+P23_S = 2048
+
+
+def phase_dense_published(torch, FA, T, C, dev, card):
+    """Phase 23: each model alone on the card (the one before freed)."""
+    from repro_torch.models import layers as L
+
+    totals = {"wgmma": 0, "fma": 0}
+    t_phase = time.perf_counter()
+    for arch, B, widths in P23_MODELS:
+        S = P23_S
+        cfg = C.get_config(arch)
+        check(cfg.compute_dtype == "bfloat16" and (
+            cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_,
+            cfg.param_dtype) == widths, f"phase 23: config {cfg}")
+        t0 = time.perf_counter()
+        model = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"phase 23: {arch} ({n_params:.4g} parameters, {cfg.param_dtype}, "
+            f"{torch.cuda.memory_allocated() / 1e9:.1f} GB) drawn on the card in "
+            f"{time.perf_counter() - t0:.2f} s; B {B} S {S}")
+        batch = prompt_of(family_batch(torch, cfg, dev, B, S, seed=1), S)
+        kc = cfg.replace(attn_impl="pallas")
+        cfg32 = cfg.replace(compute_dtype="float32")
+        FA.reset_launch_counts()
+        t0 = time.perf_counter()
+        hidden, _ = T.forward(model, kc, batch)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        fwd = {"wgmma": FA.flash_attention.launches_wgmma,
+               "fma": FA.flash_attention.launches_fma}
+        want = {"wgmma": cfg.n_layers, "fma": 0}
+        check(fwd == want, f"phase 23: {arch}: K5 launched {fwd}, not {want} a forward")
+        check(hidden.shape == (B, S, cfg.d_model) and hidden.dtype == torch.bfloat16
+              and bool(torch.isfinite(hidden).all()),
+              f"phase 23: {arch}: hidden {hidden.shape} {hidden.dtype}, or not finite")
+        h_plain, _ = T.forward(model, cfg, batch)
+        ref32, _ = T.forward(model, cfg32, batch)
+        torch.cuda.synchronize()
+        check(FA.flash_attention.launches == cfg.n_layers,
+              f"phase 23: {arch}: the plain attention launched K5")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        h_err, noise = rel(hidden, h_plain), rel(h_plain, ref32)
+        h_limit = max(HIDDEN_RTOL, BF16_NOISE_FACTOR * noise)
+        log(f"phase 23: {arch}: K5 forward {tuple(hidden.shape)} in {first_s:.3f} s "
+            f"(first call), {fwd['wgmma']} K5 launches on the tensor cores; against the "
+            f"plain attention on the same weights: bf16 hidden max err {h_err:.3e} of "
+            f"max |hidden| (limit {h_limit:.3e}: {HIDDEN_RTOL}, or {BF16_NOISE_FACTOR} x "
+            f"the plain bf16 path's own distance {noise:.3e} from the f32 forward); "
+            f"allocator peak so far {peak:.1f} GB")
+        check(h_err <= h_limit, f"phase 23: {arch}: bf16 hidden differs from the plain "
+              f"attention by {h_err:.3e}")
+        del hidden, h_plain, ref32
+        torch.cuda.empty_cache()
+        prefill_decode_hold(torch, T, L, model, kc.replace(compute_dtype="float32"),
+                            dev, f"23 ({arch})")
+        fwd_ms = cuda_ms(torch, lambda: T.forward(model, kc, batch), reps=2, rounds=3)
+        fwd_plain_ms = cuda_ms(torch, lambda: T.forward(model, cfg, batch), reps=1,
+                               rounds=2)
+        log(json.dumps({"end_to_end": "forward", "arch": arch, "B": B, "S": S,
+                        "compute_dtype": cfg.compute_dtype, "attn_impl": "pallas",
+                        "ms": fwd_ms, "tokens_per_s": B * S / fwd_ms * 1e3,
+                        "plain_attention_ms": fwd_plain_ms,
+                        "plain_attention_tokens_per_s": B * S / fwd_plain_ms * 1e3,
+                        "card": card}))
+        log(json.dumps({"profile": "forward", "arch": arch, "attn_impl": "pallas",
+                        **device_split(torch, lambda: T.forward(model, kc, batch))}))
+        totals["wgmma"] += fwd["wgmma"]
+        del model, batch
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 23: {seconds:.1f} s; K5 launches {totals}")
+    return dict(counts=totals, seconds=seconds)
 
 
 def main() -> int:
@@ -4244,6 +4534,9 @@ def main() -> int:
 
 
 def _main(torch, core, _build, KC, dev, card, t_script, children) -> int:
+    def mark(phases):
+        log(f"chip_smoke: phase {phases} done at {time.perf_counter() - t_script:.1f} s")
+
     t0 = time.perf_counter()
     _build.lib()
     log(f"phase 1: built {_build.build_info['path']} in "
@@ -4315,6 +4608,7 @@ def _main(torch, core, _build, KC, dev, card, t_script, children) -> int:
     p3 = phase_run_sweep(torch, core, KC, dev)
     p4 = phase_shard_sweep(torch, core, KC, dev, p3["profiles"])
     rows = phase_timings(torch, core, KC, dev, p3, sass_loops)
+    mark("1-5")
     log(json.dumps({"end_to_end": "shard_sweep_streamed", "A": 64,
                     "V": p4["result"].num_variants,
                     "shards": p4["result"].num_shards,
@@ -4331,11 +4625,13 @@ def _main(torch, core, _build, KC, dev, card, t_script, children) -> int:
 
     fa = phase_flash_attention(torch, FA, dev)
     torch.cuda.empty_cache()
+    mark(6)
     model, cfg, fa_launches = phase_model(torch, FA, T, C, dev)
     phase_serving(torch, FA, T, E, model, cfg, dev)
     p18c = phase_zoo_card_cell(torch, model, dev)
     del model
     torch.cuda.empty_cache()
+    mark("7-8")
 
     ssm_rows = phase_ssm_kernels(torch, RN, SS, dev)
     torch.cuda.empty_cache()
@@ -4343,20 +4639,25 @@ def _main(torch, core, _build, KC, dev, card, t_script, children) -> int:
     phase_ssm_serving(torch, RN, SS, T, E, model, cfg, dev)
     del model
     torch.cuda.empty_cache()
+    mark("9-11")
 
     p12 = phase_codesign(torch, core, KC, dev, p3)
+    mark(12)
 
     for spec in FAMILY_PHASES:
         torch.cuda.empty_cache()
         family_launches = phase_family(torch, FA, T, E, C, dev, spec)
         for kernel, count in family_launches.items():
             fa_launches[kernel] += count
+        mark(spec["phase"])
     torch.cuda.empty_cache()
 
     p17 = phase_frontier_service(torch, core, KC, dev, p3, p12)
     torch.cuda.empty_cache()
+    mark(17)
     p18 = phase_measurement(torch, core, KC, dev, p18c)
     torch.cuda.empty_cache()
+    mark(18)
     FA.reset_launch_counts()
     reset_ssm_counts(RN, SS)
     p19 = phase_training(torch, T, C, dev)
@@ -4371,7 +4672,21 @@ def _main(torch, core, _build, KC, dev, card, t_script, children) -> int:
     children.extend(start_dryrun_children())
     p20 = phase_hillclimb(torch, core, KC, dev)
     torch.cuda.empty_cache()
-    p21 = phase_sharded(torch, core, KC, dev, children, p3["profiles"])
+    mark("19-20")
+    with nccl_world(torch):
+        p21 = phase_sharded(torch, core, KC, dev, children, p3["profiles"])
+        torch.cuda.empty_cache()
+        mark(21)
+        p22 = phase_mesh_kernels(torch, FA, RN, SS, T, C, dev, card)
+    torch.cuda.empty_cache()
+    mark("22")
+    p23 = phase_dense_published(torch, FA, T, C, dev, card)
+    mark(23)
+    for p in (p22, p23):
+        fa_launches["wgmma"] += p["counts"]["wgmma"]
+        fa_launches["fma"] += p["counts"]["fma"]
+    for name in ("rmsnorm", "rmsnorm_residual", "selective_scan"):
+        ssm_launches[name] += p22["counts"][name]
 
     kernels = []
     for name in REPLACES:

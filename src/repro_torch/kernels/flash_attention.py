@@ -22,7 +22,8 @@ mask the ragged S and T edges themselves.
 
 ``_route`` picks one from the inputs before the launch; a CUDA tensor never
 falls back to the plain version, and what neither kernel takes (another
-dtype, a non-unit stride along D, a head dim over 256) raises.  A CPU tensor
+dtype, a non-unit stride along D, a head dim over 256) raises, as does a
+DTensor on any device (``refuse_dtensor``).  A CPU tensor
 takes the plain version, ``plain_flash_attention``
 (``repro_torch.kernels.ref``).  The kernels read q, k and v through their
 (batch, head, position) strides, and the output keeps q's layout: a
@@ -38,7 +39,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import refuse_autograd
+from repro_torch.kernels import refuse_autograd, refuse_dtensor
 from repro_torch.kernels.ref import flash_attention_ref as plain_flash_attention
 
 MAX_HEAD_DIM = 256
@@ -64,7 +65,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def _on_kernel(q, k, v) -> bool:
     """True when the call goes to the kernel, False for the plain version;
-    raises on a mix of devices or on what the kernel does not take."""
+    raises on a DTensor, a mix of devices or on what the kernel does not
+    take."""
+    refuse_dtensor("the flash-attention kernel K5", q, k, v)
     devices = {t.device for t in (q, k, v)}
     if len(devices) != 1:
         raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")

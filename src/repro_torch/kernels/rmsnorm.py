@@ -11,7 +11,8 @@ no ``block_rows`` and no fallback to one row per block.
 
 A CUDA tensor goes to the kernel: ``x`` (and ``residual``, of ``x``'s dtype
 and shape) float32 or bfloat16 and contiguous, ``scale`` a contiguous
-float32 or bfloat16 vector of length d; anything else raises.  A CPU tensor
+float32 or bfloat16 vector of length d; anything else raises, as does a
+DTensor, on every device (``refuse_dtensor``).  A CPU tensor
 takes the plain version (``repro_torch.kernels.ref``).  Outputs are in
 ``x``'s dtype and shape.  Kernel launches are counted in
 ``rmsnorm.launches`` and ``rmsnorm_residual.launches``.
@@ -23,7 +24,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import refuse_autograd
+from repro_torch.kernels import refuse_autograd, refuse_dtensor
 from repro_torch.kernels.ref import rmsnorm_ref as plain_rmsnorm
 from repro_torch.kernels.ref import rmsnorm_residual_ref as plain_rmsnorm_residual
 
@@ -32,7 +33,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _on_kernel(x: torch.Tensor, scale: torch.Tensor, *others: torch.Tensor) -> bool:
     """True when the call goes to the kernel, False for the plain version;
-    raises on a mix of devices or on what the kernel does not take."""
+    raises on a DTensor, a mix of devices or on what the kernel does not
+    take."""
+    refuse_dtensor("the RMSNorm kernels K6 / K7", x, scale, *others)
     if x.dim() < 1 or scale.shape != (x.shape[-1],):
         raise ValueError(f"scale {tuple(scale.shape)} does not match the last "
                          f"dim of x {tuple(x.shape)}")

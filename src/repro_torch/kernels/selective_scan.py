@@ -13,7 +13,8 @@ A CUDA tensor goes to the kernel: ``xi``, ``dt_raw``, ``Bm`` and ``Cm``
 float32 or bfloat16 each, with a unit stride along their last dim (the
 kernel reads them through their batch and time strides, so the model's
 ``Bm`` / ``Cm`` column slices go in without a copy); ``A`` (Din, N) and
-``h0`` (B, Din, N) contiguous float32, N at most 16; anything else raises.
+``h0`` (B, Din, N) contiguous float32, N at most 16; anything else raises,
+as does a DTensor, on every device (``refuse_dtensor``).
 A CPU tensor takes the plain version (``repro_torch.kernels.ref``).
 
 The reference contract holds by default: ``y`` in ``xi``'s dtype, ``hT``
@@ -30,7 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import refuse_autograd
+from repro_torch.kernels import refuse_autograd, refuse_dtensor
 from repro_torch.kernels.ref import selective_scan_ref as plain_selective_scan
 
 MAX_STATE = 16
@@ -56,7 +57,9 @@ def _check(xi, dt_raw, Bm, Cm, A, h0, out_state) -> None:
 
 def _on_kernel(*tensors: Optional[torch.Tensor]) -> bool:
     """True when the call goes to the kernel, False for the plain version;
-    raises on a mix of devices or on what the kernel does not take."""
+    raises on a DTensor, a mix of devices or on what the kernel does not
+    take."""
+    refuse_dtensor("the selective-scan kernel K8", *tensors)
     xi, dt_raw, Bm, Cm, A, h0, out_state = tensors
     present = [t for t in tensors if t is not None]
     devices = {t.device for t in present}

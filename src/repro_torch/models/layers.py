@@ -118,9 +118,13 @@ def _matmul_local(x, w):
 
 
 def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Contract x's last dim with w's first: ``einsum("...d,d...->...")``."""
+    """Contract x's last dim with w's first: ``einsum("...d,d...->...")``.
+    A weight split on a dim the product flattens -- an inner one, or one of
+    extent 1 (one kv head "split" over a "model" axis of size 1), which
+    DTensor's view rule will not flatten either -- takes ``_matmul_local``."""
     if is_dtensor(w) and w.ndim > 2 and any(
-            getattr(p, "dim", 0) >= 2 for p in w.placements):
+            getattr(p, "dim", 0) >= 2 or getattr(p, "dim", 0) == 1 and w.shape[1] == 1
+            for p in w.placements):
         return _matmul_local(x, w)
     out = torch.matmul(x, w.reshape(w.shape[0], -1))
     return out.reshape(*x.shape[:-1], *w.shape[1:])
@@ -508,13 +512,10 @@ def _attend_sharded(q, k, v, q_pos, k_pos, mask: MaskSpec, cfg: ModelConfig,
     (B, S, H, hd), laid out as the region's q.  Positions and the mask are
     the device's rows.  With ``k5`` (``attn_apply``'s gate, one for both
     paths) the kernel K5 attends the local tensors."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor import Partial, Replicate, Shard
 
     mesh = q.device_mesh
-    names = list(mesh.mesh_dim_names)
-    info = _ctx.shmap_info()
-    dp_axes = tuple(info[0]) if info else tuple(a for a in ("pod", "data") if a in names)
-    tp = (info[1] if info else "model") if "model" in names else None
+    names, dp_axes, tp = _region_axes(mesh)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
@@ -571,9 +572,7 @@ def _attend_sharded(q, k, v, q_pos, k_pos, mask: MaskSpec, cfg: ModelConfig,
     else:
         ctx = _attend(ql.reshape(B_loc, S, K_loc, G_loc, hd), kl, vl, qp, kp,
                       mask, cfg).reshape(B_loc, S, H_loc, hd)
-    return DTensor.from_local(ctx.contiguous(), mesh, q_pl, run_check=False,
-                              shape=(B, S, H, hd),
-                              stride=(S * H * hd, H * hd, hd, 1))
+    return _dtensor(ctx.contiguous(), mesh, q_pl, (B, S, H, hd))
 
 
 def _local_rows(t) -> slice:
@@ -592,6 +591,26 @@ def _local_rows(t) -> slice:
 
 def _plain(t: torch.Tensor) -> torch.Tensor:
     return t.full_tensor() if is_dtensor(t) else t
+
+
+def _region_axes(mesh):
+    """(the mesh's dim names, its data axes, its "model" axis or None) for
+    an explicit local region, from the active rules' ``shmap`` entry when
+    there is one."""
+    names = list(mesh.mesh_dim_names)
+    info = _ctx.shmap_info()
+    dp_axes = tuple(info[0]) if info else tuple(a for a in ("pod", "data") if a in names)
+    tp = (info[1] if info else "model") if "model" in names else None
+    return names, dp_axes, tp
+
+
+def _dtensor(local: torch.Tensor, mesh, pl, shape) -> torch.Tensor:
+    """The DTensor of global ``shape`` (contiguous) whose shard on this
+    device is ``local``, with placements ``pl``: a local region's result."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, mesh, tuple(pl), run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 # --------------------------------------------------------------------------- #
@@ -1072,6 +1091,49 @@ def _ssm_scan(xi: torch.Tensor, dt_in: torch.Tensor, Bm: torch.Tensor,
     return torch.cat(ys, dim=1), h
 
 
+def _scan_sharded(xi, dt_raw, Bm, Cm, A, h0):
+    """K8 in an explicit local region, for DTensor inputs: each device scans
+    its (B_loc, S, Din_loc) block -- its batch rows (split over the data
+    axes) and its channels (split over "model"), each channel independent
+    of the others -- reading ``Bm`` and ``Cm`` (B, S, N) whole over "model".
+    ``h0``, a layer's view of the cache's "ssm" entry (the "ssm_state"
+    layout: rows over the data axes, channels over "model"), is read and
+    written in place in this device's shard.  -> y (B, S, Din) float32,
+    laid out as the region's xi."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = xi.device_mesh
+    names, dp_axes, tp = _region_axes(mesh)
+    B, S, Din = xi.shape
+    dp = math.prod(mesh.size(names.index(a)) for a in dp_axes)
+    split_b = B % dp == 0
+    split_d = tp is not None and Din % mesh.size(names.index(tp)) == 0
+
+    def pl(b_dim, d_dim):
+        out = [Replicate() for _ in names]
+        for a in dp_axes if split_b and b_dim is not None else ():
+            out[names.index(a)] = Shard(b_dim)
+        if split_d and d_dim is not None:
+            out[names.index(tp)] = Shard(d_dim)
+        return tuple(out)
+
+    def local(t, placements):
+        return t.redistribute(mesh, placements).to_local()
+
+    x_pl, h_pl, bc_pl = pl(0, 2), pl(0, 1), pl(0, None)
+    hl = None
+    if h0 is not None:
+        if not is_dtensor(h0) or tuple(h0.placements) != h_pl:
+            raise ValueError("the sharded scan writes its state in place into "
+                             f"the cache's shard laid out as {h_pl}; got "
+                             f"{getattr(h0, 'placements', 'a plain tensor')}")
+        hl = h0.to_local()
+    y, _ = kops.selective_scan(local(xi, x_pl), local(dt_raw, x_pl), local(Bm, bc_pl),
+                               local(Cm, bc_pl), local(A, pl(None, 0)).contiguous(),
+                               hl, y_dtype=torch.float32, out_state=hl)
+    return _dtensor(y, mesh, x_pl, (B, S, Din))
+
+
 def mamba_apply(p: Mapping, cfg: ModelConfig, x: torch.Tensor, *,
                 state: Optional[Dict[str, torch.Tensor]] = None,
                 scan_chunk: int = 256) -> torch.Tensor:
@@ -1081,8 +1143,8 @@ def mamba_apply(p: Mapping, cfg: ModelConfig, x: torch.Tensor, *,
     N)}`` cache views) the conv and scan start from it and the new states
     are written back into it in place.  Under ``cfg.attn_impl == "pallas"``
     the scan is the kernel K8, fed float32 ``dt_raw = dt_in @ w_dt +
-    dt_bias`` and asked for float32 ``y``; otherwise the plain
-    ``_ssm_scan``."""
+    dt_bias`` and asked for float32 ``y`` (on a mesh in a local region,
+    ``_scan_sharded``); otherwise the plain ``_ssm_scan``."""
     s = cfg.ssm
     assert s is not None
     cd = dtype_of(cfg.compute_dtype)
@@ -1098,14 +1160,21 @@ def mamba_apply(p: Mapping, cfg: ModelConfig, x: torch.Tensor, *,
     xi = F.silu(xi)
 
     dbc = torch.matmul(xi, p["w_xdbc"].to(cd))
+    if cfg.attn_impl == "pallas":
+        # K8 reads B and C whole on every device of a mesh: the partial sums
+        # of the Din-split product are reduced once, before its region
+        dbc = _tokens_whole(dbc)
     dt_in, Bm, Cm = torch.split(dbc, [dt_rank, n, n], dim=-1)
 
     A = -torch.exp(p["A_log"].float())                          # (Din, N)
     h0 = state["ssm"] if state is not None else None
     if cfg.attn_impl == "pallas":
         dt_raw = torch.matmul(dt_in.float(), p["w_dt"].float()) + p["dt_bias"].float()
-        y, _ = kops.selective_scan(xi, dt_raw, Bm, Cm, A, h0, y_dtype=torch.float32,
-                                   out_state=h0)
+        if is_dtensor(xi):
+            y = _scan_sharded(xi, dt_raw, Bm, Cm, A, h0)
+        else:
+            y, _ = kops.selective_scan(xi, dt_raw, Bm, Cm, A, h0,
+                                       y_dtype=torch.float32, out_state=h0)
     else:
         if h0 is None:
             h0 = x.new_zeros((x.shape[0], xi.shape[-1], n), dtype=torch.float32)

@@ -33,8 +33,10 @@ results), keyed by the ``ParamTree`` names in the stacked layout, and
 identity outside ``use_rules``).  A model whose parameters are DTensors
 (``distributed.place.shard_model``) runs sharded: attention, the MoE, the
 embedding lookup and the label pick of the loss run in explicit local
-regions (``layers``), and a parameter split over the data axes (FSDP) is
-gathered where a layer reads it.
+regions (``layers``), as do the kernels K5-K8 under ``attn_impl="pallas"``
+and the in-place cache writes, each on the device's local tensors, and a
+parameter split over the data axes (FSDP) is gathered where a layer
+reads it.
 
 Where the port differs: the layer ``scan`` is a Python loop over the
 model's stacks; ``init_model`` and ``init_cache`` return no axes (the
@@ -444,7 +446,8 @@ def _ssm_stack(model: Model, cfg: ModelConfig, x: torch.Tensor, cache=None):
     """The SSM blocks and the final norm over x (B, S, D); with ``cache``
     each block's conv / scan states start from it and are written back.
     Under ``attn_impl="pallas"`` (with RMSNorm) the norms and residual adds
-    run as K6 + K7 (module docstring)."""
+    run as K6 + K7 (module docstring), on a mesh in local regions
+    (``_kernel_norm``)."""
     states = ([_at(cache, i) for i in range(len(model.layers))]
               if cache is not None else [None] * len(model.layers))
     if cfg.attn_impl != "pallas" or cfg.norm != "rmsnorm":
@@ -453,12 +456,41 @@ def _ssm_stack(model: Model, cfg: ModelConfig, x: torch.Tensor, cache=None):
         return L.norm_apply(model.final_norm, cfg, x)
     eps = cfg.norm_eps
     norms = [bp.ln["scale"] for bp in model.layers[1:]] + [model.final_norm["scale"]]
-    normed = kops.rmsnorm(x, model.layers[0].ln["scale"], eps=eps)
+    normed, = _kernel_norm(x, model.layers[0].ln["scale"], eps)
     for bp, st, scale in zip(model.layers, states, norms):
         h = L.mamba_apply(bp.mamba, cfg, normed, state=st,
                           scan_chunk=cfg.ssm.scan_chunk)
-        normed, x = kops.rmsnorm_residual(x, h, scale, eps=eps)
+        normed, x = _kernel_norm(x, scale, eps, h)
     return normed
+
+
+def _kernel_norm(x, scale, eps, h=None):
+    """K6 over x, or (``h`` given) K7 over ``x + h``: -> (normed,) or
+    (normed, x + h).  On a mesh in an explicit local region: RMSNorm is
+    row-local, so each device normalises its own rows of x in the "acts"
+    layout (rows over the data axes, the sequence over "model" under
+    sequence parallelism, d_model whole; a decode step's pending partial
+    sums reduced), with ``h`` redistributed to that layout (its partial
+    sums reduce-scattered under sequence parallelism) and ``scale``
+    whole; the results are DTensors in that layout."""
+    if not is_dtensor(x):
+        if h is None:
+            return (kops.rmsnorm(x, scale, eps=eps),)
+        return kops.rmsnorm_residual(x, h, scale, eps=eps)
+    from torch.distributed.tensor import Replicate, Shard
+
+    x = constrain(x, "acts")
+    pl = tuple(p if isinstance(p, Shard) and p.dim < x.ndim - 1 else Replicate()
+               for p in x.placements)
+    mesh = x.device_mesh
+    x = x.redistribute(mesh, pl)
+    xl, sl = x.to_local().contiguous(), L._plain(scale).contiguous()
+    if h is None:
+        outs = (kops.rmsnorm(xl, sl, eps=eps),)
+    else:
+        hl = h.redistribute(mesh, pl).to_local().contiguous()
+        outs = kops.rmsnorm_residual(xl, hl, sl, eps=eps)
+    return tuple(L._dtensor(o, mesh, pl, x.shape) for o in outs)
 
 
 def _ring_write(bp, cfg, x, rope, kv) -> None:
@@ -475,8 +507,15 @@ def _ring_write(bp, cfg, x, rope, kv) -> None:
     W, S = kv["k"].shape[1], k.shape[1]
     take = min(W, S)
     slots = (S - take + torch.arange(take, device=x.device)) % W
-    kv["k"][:, slots] = k[:, S - take:].to(kv["k"].dtype)
-    kv["v"][:, slots] = v[:, S - take:].to(kv["v"].dtype)
+    k, v = k[:, S - take:].to(kv["k"].dtype), v[:, S - take:].to(kv["v"].dtype)
+    if is_dtensor(kv["k"]):
+        # in a local region (DTensor has no rule for index_put_ in every
+        # PyTorch release): each device writes its own rows and heads
+        mesh, pl = kv["k"].device_mesh, kv["k"].placements
+        kv = {n: kv[n].to_local() for n in ("k", "v")}
+        k, v = (t.redistribute(mesh, pl).to_local() for t in (k, v))
+    kv["k"][:, slots] = k
+    kv["v"][:, slots] = v
 
 
 def _hybrid_stack(model: Model, cfg: ModelConfig, x, *, rope, mask, q_pos,

@@ -16,6 +16,14 @@ Ranks meet through the file store ``DIR/store`` (no network).  ``TASK``:
 * ``restore`` (4 ranks): ``shard_sweep`` over the 4-rank ``variants`` mesh
   beside the meshless run, and that checkpoint restored onto a (2, 2)
   mesh.
+* ``kernels`` (4 ranks, a (2, 2) mesh and a (4, 1) one, for
+  ``tests/test_torch_mesh_kernels.py``): each family under
+  ``attn_impl="pallas"``, its forward, prefill and decode step sharded
+  under ``tp`` against the unsharded ones, with the model
+  kernels' entry points spied on; each kernel wrapper handed a DTensor;
+  chatglm3-6b's and falcon-mamba-7b's sharded forward and prefill on the
+  JAX package's weights (``DIR/kernels.npz``) saved to
+  ``DIR/kernels_out.npz``.
 
 Rank 0 writes ``DIR/TASK.json``.
 """
@@ -192,12 +200,164 @@ def infer(d, rank):
     return out
 
 
+#: the model kernels' entry points (``repro_torch.kernels.ops``)
+KERNEL_OPS = ("flash_attention", "rmsnorm", "rmsnorm_residual", "selective_scan")
+
+
+class KernelSpy:
+    """Wraps the ``kops`` entry points: counts each one's calls, and the
+    calls that were handed a DTensor, in ``calls`` / ``dtensor_calls``."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+
+        self.ops, self.real = ops, {n: getattr(ops, n) for n in KERNEL_OPS}
+        self.reset()
+        for name in KERNEL_OPS:
+            setattr(ops, name, self._spy(name))
+
+    def _spy(self, name):
+        real = self.real[name]
+
+        def call(*args, **kwargs):
+            self.calls[name] += 1
+            if any(PL.is_dtensor(t) for t in (*args, *kwargs.values())):
+                self.dtensor_calls[name] += 1
+            return real(*args, **kwargs)
+
+        return call
+
+    def reset(self):
+        self.calls = dict.fromkeys(KERNEL_OPS, 0)
+        self.dtensor_calls = dict.fromkeys(KERNEL_OPS, 0)
+
+    def take(self):
+        out = {"calls": self.calls, "dtensor_calls": self.dtensor_calls}
+        self.reset()
+        return out
+
+    def close(self):
+        for name, fn in self.real.items():
+            setattr(self.ops, name, fn)
+
+
+def _refusals(mesh):
+    """Each wrapper called with one DTensor argument on ``mesh``: -> the
+    error each raised (its type and message), or None."""
+    from repro_torch.kernels import ops
+
+    def dt(*shape):
+        return PL.distribute(torch.randn(*shape), (), mesh)
+
+    k = torch.randn(2, 2, 8, 16)
+    x, scale = torch.randn(4, 8, 32), torch.ones(32)
+    xi, bc, A = torch.rand(2, 8, 16), torch.rand(2, 8, 4), -torch.rand(16, 4)
+    calls = {
+        "flash_attention": lambda: ops.flash_attention(dt(2, 4, 8, 16), k, k),
+        "rmsnorm": lambda: ops.rmsnorm(dt(4, 8, 32), scale),
+        "rmsnorm_residual": lambda: ops.rmsnorm_residual(x, dt(4, 8, 32), scale),
+        "selective_scan": lambda: ops.selective_scan(xi, xi, bc, bc, A,
+                                                     dt(2, 16, 4)),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            out[name] = None
+        except Exception as exc:   # noqa: BLE001 -- the test reads the type
+            out[name] = [type(exc).__name__, str(exc)]
+    return out
+
+
+#: (arch, config changes, mesh shape) of the ``kernels`` task: every
+#: ``INFER_CASES`` case on (2, 2), and the hybrid on a "model" axis of size
+#: 1, which splits its one kv head over it
+KERNEL_CASES = {**{case: (case.replace("-one-kv-head", ""), change, (2, 2))
+                   for case, change in INFER_CASES.items()},
+                "recurrentgemma-9b-4x1": ("recurrentgemma-9b", {}, (4, 1))}
+
+
+def kernels(d, rank):
+    """Every ``KERNEL_CASES`` case's smoke config in float32 under
+    ``attn_impl="pallas"`` and ``torch.no_grad()``, unsharded and on its
+    mesh under ``tp``: the largest error of the forward's hidden
+    states, of a prefill's and a decode step's logits and of the cache after
+    them (each on its largest's scale), and the ``kops`` calls of each,
+    sharded and unsharded.  chatglm3-6b and falcon-mamba-7b run on the JAX
+    package's weights and tokens (``DIR/kernels.npz``); rank 0 saves their
+    sharded forward's hidden states and prefill's logits."""
+    from repro_torch.launch.specs import _shapes
+
+    meshes = {shape: MESH.make_mesh(shape, ("data", "model"))
+              for shape in {m for _, _, m in KERNEL_CASES.values()}}
+    sc = SH.ShardingConfig(variant="tp")
+    npz = np.load(os.path.join(d, "kernels.npz"))
+    out, saved = {"refusals": _refusals(meshes[2, 2])}, {}
+    spy = KernelSpy()
+    B, S = 4, 16
+    for case, (arch, change, shape) in KERNEL_CASES.items():
+        mesh = meshes[shape]
+        cfg = C.get_config(arch, smoke=True).replace(
+            compute_dtype="float32", attn_impl="pallas", **change)
+        gen = torch.Generator().manual_seed(1)
+        if f"{arch}/tokens" in npz.files and not change:
+            model = model_from_jax(cfg, _jax_tree(npz, f"{arch}/params"), device="cpu")
+            batch = {"tokens": torch.as_tensor(npz[f"{arch}/tokens"])}
+        else:
+            model = T.init_model(cfg, device="cpu")
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen)}
+        if cfg.family.value == "audio":
+            batch["frames"] = torch.randn(B, cfg.encoder_seq_len, cfg.d_model, generator=gen)
+        if cfg.family.value == "vlm":
+            batch["patches"] = torch.randn(B, cfg.n_vision_tokens, cfg.d_model, generator=gen)
+        tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen)
+        with torch.no_grad():
+            calls = {}
+            h, _ = T.forward(model, cfg, batch)
+            calls["forward"] = spy.take()
+            cache, l0 = T.prefill(model, cfg, batch, T.init_cache(cfg, B, S + 4, device="cpu"))
+            calls["prefill"] = spy.take()
+            cache, l1 = T.decode_step(model, cfg, cache, tok, S)
+            calls["decode"] = spy.take()
+            PL.shard_state(cfg, model, mesh, sc)
+            sb = PL.shard_batch(batch, mesh, sc)
+            sharded = {}
+            h_s, _ = _sharded(lambda: T.forward(model, cfg, sb), mesh, sc, "prefill")
+            sharded["forward"] = spy.take()
+            c2 = T.init_cache(cfg, B, S + 4, device="cpu")
+            c2 = PL.shard_tree(c2, SH.param_specs(_shapes(c2), T.cache_axes(cfg), mesh, sc,
+                                                  fsdp=False), mesh)
+            c2, m0 = _sharded(lambda: T.prefill(model, cfg, sb, c2), mesh, sc, "prefill")
+            sharded["prefill"] = spy.take()
+            tok_s = PL.shard_batch({"t": tok}, mesh, sc)["t"]
+            c2, m1 = _sharded(lambda: T.decode_step(model, cfg, c2, tok_s, S), mesh, sc,
+                              "decode")
+            sharded["decode"] = spy.take()
+
+        def err(a, b):
+            if isinstance(b, dict):
+                return max(err(a[k], b[k]) for k in b)
+            return float((PL.full(a) - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+        out[case] = {"errors": {"forward": err(h_s, h), "prefill": err(m0, l0),
+                                "decode": err(m1, l1), "cache": err(c2, cache)},
+                     "unsharded_calls": calls, "sharded_calls": sharded}
+        if f"{arch}/tokens" in npz.files and not change:
+            saved[f"{arch}/hidden"] = PL.full(h_s).numpy()
+            saved[f"{arch}/prefill"] = PL.full(m0).numpy()
+    spy.close()
+    if rank == 0:
+        np.savez(os.path.join(d, "kernels_out.npz"), **saved)
+    return out
+
+
 if __name__ == "__main__":
     task, rank, world, d = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
     MESH.init_world("gloo", init_method=f"file://{os.path.join(d, task + '.store')}",
                     rank=rank, world_size=world)
     torch.manual_seed(0)
-    res = {"train": train, "restore": restore, "infer": infer}[task](d, rank)
+    res = {"train": train, "restore": restore, "infer": infer,
+           "kernels": kernels}[task](d, rank)
     if rank == 0:
         with open(os.path.join(d, task + ".json"), "w") as f:
             json.dump(res, f)
