@@ -25,6 +25,8 @@ import time
 from pathlib import Path
 from typing import Optional
 
+from repro_torch import tracing
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = (CSRC / "congruence.cu", CSRC / "flash_attention.cu",
            CSRC / "flash_attention_sm90.cu", CSRC / "rmsnorm.cu",
@@ -143,13 +145,17 @@ def build() -> Path:
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on the first call (under a lock;
-    once it is loaded, every call returns it without the lock)."""
+    once it is loaded, every call returns it without the lock).  The first
+    call is a ``kernels.build`` span of ``repro_torch.tracing``: whether the
+    library came from the cache, and nvcc's seconds."""
     global _lib
     if _lib is not None:
         return _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(build()))
+            with tracing.span("kernels.build") as sp:
+                handle = ctypes.CDLL(str(build()))
+                sp.set(cached=build_info["cached"], build_s=build_info["seconds"])
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes

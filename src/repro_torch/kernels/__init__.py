@@ -2,7 +2,11 @@
 kernels of ``repro/kernels``, each beside its plain PyTorch version
 (``ref``); ``ops`` is the entry point the model stack calls.  A kernel
 takes plain tensors: on a mesh the model calls it on each device's local
-tensors, in explicit local regions (``refuse_dtensor``)."""
+tensors, in explicit local regions (``refuse_dtensor``).  Each wrapper
+counts its launches in ``<wrapper>.launches``; ``launch_counts`` reads
+them all."""
+
+from typing import Dict
 
 import torch
 
@@ -35,3 +39,30 @@ def refuse_dtensor(kernel: str, *tensors) -> None:
             f"{kernel} takes plain (local) tensors, not a DTensor: call it on "
             "each device's local tensors inside a local region, as the model "
             "stack does")
+
+
+def _wrappers():
+    from repro_torch.kernels import flash_attention, rmsnorm, selective_scan
+
+    return (flash_attention.flash_attention, rmsnorm.rmsnorm,
+            rmsnorm.rmsnorm_residual, selective_scan.selective_scan)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of K5 (``flash_attention``, and by kernel
+    ``flash_attention_wgmma`` / ``flash_attention_fma``), K6 (``rmsnorm``),
+    K7 (``rmsnorm_residual``) and K8 (``selective_scan``) since the last
+    reset."""
+    fa, rn, rr, ss = _wrappers()
+    return {"flash_attention": fa.launches, "flash_attention_wgmma": fa.launches_wgmma,
+            "flash_attention_fma": fa.launches_fma, "rmsnorm": rn.launches,
+            "rmsnorm_residual": rr.launches, "selective_scan": ss.launches}
+
+
+def reset_launch_counts() -> None:
+    """Zero every model kernel's launch counts."""
+    from repro_torch.kernels import flash_attention
+
+    flash_attention.reset_launch_counts()
+    for wrapper in _wrappers()[1:]:
+        wrapper.launches = 0

@@ -26,6 +26,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.distributed import ctx as _ctx
 from repro_torch.distributed.place import is_dtensor
 from repro_torch.kernels import ops as kops
@@ -421,72 +422,74 @@ def attn_apply(
     with a cache and ``static_cache`` (or ``kv_x``) the cache holds the
     precomputed cross k/v, read as they are (no k-norm, no rope, no write).
     """
-    cd = dtype_of(cfg.compute_dtype)
-    B, S, _ = x.shape
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    G = H // K
-    cross_cached = cache is not None and (static_cache or kv_x is not None)
-    self_cached = cache is not None and not cross_cached
+    with tracing.span("attn"):
+        cd = dtype_of(cfg.compute_dtype)
+        B, S, _ = x.shape
+        H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        G = H // K
+        cross_cached = cache is not None and (static_cache or kv_x is not None)
+        self_cached = cache is not None and not cross_cached
 
-    xc = _tokens_whole(x.to(cd))
-    q = _matmul(xc, p["wq"].to(cd))
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(cd)
-    if cross_cached:
-        k, v = cache["k"].to(cd), cache["v"].to(cd)
-    else:
-        src = _tokens_whole(kv_x.to(cd)) if kv_x is not None else xc
-        k = _matmul(src, p["wk"].to(cd))
-        v = _matmul(src, p["wv"].to(cd))
+        xc = _tokens_whole(x.to(cd))
+        q = _matmul(xc, p["wq"].to(cd))
         if cfg.qkv_bias:
-            k = k + p["bk"].to(cd)
-            v = v + p["bv"].to(cd)
-        k, v = _kv_whole(k), _kv_whole(v)
+            q = q + p["bq"].to(cd)
+        if cross_cached:
+            k, v = cache["k"].to(cd), cache["v"].to(cd)
+        else:
+            src = _tokens_whole(kv_x.to(cd)) if kv_x is not None else xc
+            k = _matmul(src, p["wk"].to(cd))
+            v = _matmul(src, p["wv"].to(cd))
+            if cfg.qkv_bias:
+                k = k + p["bk"].to(cd)
+                v = v + p["bv"].to(cd)
+            k, v = _kv_whole(k), _kv_whole(v)
 
-    if cfg.qk_norm:
-        q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
-        if not cross_cached:
-            k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
+        if cfg.qk_norm:
+            q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
+            if not cross_cached:
+                k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
 
-    if rope is not None:
-        q = apply_rope(q, *rope, cfg.rope_style)
-        if kv_x is None and not static_cache:
-            k = apply_rope(k, *rope, cfg.rope_style)
+        if rope is not None:
+            q = apply_rope(q, *rope, cfg.rope_style)
+            if kv_x is None and not static_cache:
+                k = apply_rope(k, *rope, cfg.rope_style)
 
-    if self_cached:
-        assert cache_index is not None
-        _write_cache(cache, k, v, cache_index)
-        k, v = cache["k"].to(cd), cache["v"].to(cd)
+        if self_cached:
+            assert cache_index is not None
+            _write_cache(cache, k, v, cache_index)
+            k, v = cache["k"].to(cd), cache["v"].to(cd)
 
-    T = k.shape[1]
-    if q_pos is None:
-        q_pos = torch.arange(S, device=x.device).expand(B, S)
-    if k_pos is None:
-        k_pos = torch.arange(T, device=x.device).expand(B, T)
-    if mask is None:
-        mask = MaskSpec(everything=True)
+        T = k.shape[1]
+        if q_pos is None:
+            q_pos = torch.arange(S, device=x.device).expand(B, S)
+        if k_pos is None:
+            k_pos = torch.arange(T, device=x.device).expand(B, T)
+        if mask is None:
+            mask = MaskSpec(everything=True)
 
-    wo = p["wo"].to(cd).reshape(H * hd, -1)
-    # The flash-attention kernel K5, gated as the JAX package gates its
-    # Pallas kernel: self-attention without a cache or prefix-LM masking,
-    # causal.  Like that kernel it assumes q_pos is the plain 0..S-1 range
-    # (full-sequence forward) and ignores attn_logit_softcap and
-    # attn_q_chunk.  It reads the (B, S, H, hd) projections through
-    # strides and returns its output in the same memory order.  On a mesh
-    # it runs on each device's local tensors (``_attend_sharded``).
-    k5 = (cfg.attn_impl == "pallas" and kv_x is None and cache is None
-          and not mask.everything and mask.prefix_len == 0 and mask.causal)
-    if is_dtensor(q):
-        ctx = _attend_sharded(q, k, v, q_pos, k_pos, mask, cfg, k5)
-    elif k5:
-        ctx = kops.flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True, window=mask.window).transpose(1, 2)
-        return torch.matmul(ctx.reshape(B, S, H * hd), wo), None
-    else:
-        ctx = _attend(q.reshape(B, S, K, G, hd), k, v, q_pos, k_pos, mask, cfg)
-    out = torch.matmul(ctx.reshape(B, S, H * hd), wo)
-    return out, cache if self_cached else None
+        wo = p["wo"].to(cd).reshape(H * hd, -1)
+        # The flash-attention kernel K5, gated as the JAX package gates its
+        # Pallas kernel: self-attention without a cache or prefix-LM masking,
+        # causal.  Like that kernel it assumes q_pos is the plain 0..S-1 range
+        # (full-sequence forward) and ignores attn_logit_softcap and
+        # attn_q_chunk.  It reads the (B, S, H, hd) projections through
+        # strides and returns its output in the same memory order.  On a mesh
+        # it runs on each device's local tensors (``_attend_sharded``).
+        k5 = (cfg.attn_impl == "pallas" and kv_x is None and cache is None
+              and not mask.everything and mask.prefix_len == 0 and mask.causal)
+        tracing.count("attn.k5" if k5 else "attn.plain")
+        if is_dtensor(q):
+            ctx = _attend_sharded(q, k, v, q_pos, k_pos, mask, cfg, k5)
+        elif k5:
+            ctx = kops.flash_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=True, window=mask.window).transpose(1, 2)
+            return torch.matmul(ctx.reshape(B, S, H * hd), wo), None
+        else:
+            ctx = _attend(q.reshape(B, S, K, G, hd), k, v, q_pos, k_pos, mask, cfg)
+        out = torch.matmul(ctx.reshape(B, S, H * hd), wo)
+        return out, cache if self_cached else None
 
 
 def _attend(qg, k, v, q_pos, k_pos, mask: MaskSpec, cfg: ModelConfig):
@@ -639,16 +642,17 @@ def mlp_init(cfg: ModelConfig, generator, device,
 
 
 def mlp_apply(p: Mapping, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    cd = dtype_of(cfg.compute_dtype)
-    x = _tokens_whole(x.to(cd))
-    if cfg.mlp in ("swiglu", "geglu"):
-        gate = torch.matmul(x, p["w_gate"].to(cd))
-        up = torch.matmul(x, p["w_up"].to(cd))
-        act = F.silu(gate) if cfg.mlp == "swiglu" else F.gelu(gate, approximate="tanh")
-        return torch.matmul(act * up, p["w_down"].to(cd))
-    h = torch.matmul(x, p["w_up"].to(cd)) + p["b_up"].to(cd)
-    h = F.gelu(h, approximate="tanh")
-    return torch.matmul(h, p["w_down"].to(cd)) + p["b_down"].to(cd)
+    with tracing.span("mlp"):
+        cd = dtype_of(cfg.compute_dtype)
+        x = _tokens_whole(x.to(cd))
+        if cfg.mlp in ("swiglu", "geglu"):
+            gate = torch.matmul(x, p["w_gate"].to(cd))
+            up = torch.matmul(x, p["w_up"].to(cd))
+            act = F.silu(gate) if cfg.mlp == "swiglu" else F.gelu(gate, approximate="tanh")
+            return torch.matmul(act * up, p["w_down"].to(cd))
+        h = torch.matmul(x, p["w_up"].to(cd)) + p["b_up"].to(cd)
+        h = F.gelu(h, approximate="tanh")
+        return torch.matmul(h, p["w_down"].to(cd)) + p["b_down"].to(cd)
 
 
 # --------------------------------------------------------------------------- #
@@ -689,13 +693,14 @@ def moe_apply(p: Mapping, cfg: ModelConfig,
     each row, weighted by its gate, back to its token.  Only those experts'
     weights are cast to the compute dtype.  impl="dense": every expert on
     every token.  impl="capacity": ``_moe_capacity``."""
-    if is_dtensor(x):
-        return _moe_sharded(p, cfg, x)
-    cd = dtype_of(cfg.compute_dtype)
-    B, S, D = x.shape
-    xt = x.reshape(B * S, D).to(cd)
-    gates, idx, aux = _route(p, cfg, xt)
-    return _experts(p, cfg, xt, gates, idx).reshape(B, S, D), aux
+    with tracing.span("moe"):
+        if is_dtensor(x):
+            return _moe_sharded(p, cfg, x)
+        cd = dtype_of(cfg.compute_dtype)
+        B, S, D = x.shape
+        xt = x.reshape(B * S, D).to(cd)
+        gates, idx, aux = _route(p, cfg, xt)
+        return _experts(p, cfg, xt, gates, idx).reshape(B, S, D), aux
 
 
 def _route(p: Mapping, cfg: ModelConfig, xt: torch.Tensor):
@@ -1145,48 +1150,51 @@ def mamba_apply(p: Mapping, cfg: ModelConfig, x: torch.Tensor, *,
     the scan is the kernel K8, fed float32 ``dt_raw = dt_in @ w_dt +
     dt_bias`` and asked for float32 ``y`` (on a mesh in a local region,
     ``_scan_sharded``); otherwise the plain ``_ssm_scan``."""
-    s = cfg.ssm
-    assert s is not None
-    cd = dtype_of(cfg.compute_dtype)
-    x = _tokens_whole(x.to(cd))
-    n = s.state_dim
-    dt_rank = p["w_dt"].shape[0]
+    with tracing.span("mixer"):
+        s = cfg.ssm
+        assert s is not None
+        cd = dtype_of(cfg.compute_dtype)
+        x = _tokens_whole(x.to(cd))
+        n = s.state_dim
+        dt_rank = p["w_dt"].shape[0]
 
-    xz = torch.matmul(x, p["w_in"].to(cd))
-    xi, z = xz.chunk(2, dim=-1)
+        xz = torch.matmul(x, p["w_in"].to(cd))
+        xi, z = xz.chunk(2, dim=-1)
 
-    xi, new_conv = causal_conv1d(xi, p["conv_w"], p["conv_b"],
-                                 state["conv"] if state is not None else None)
-    xi = F.silu(xi)
+        xi, new_conv = causal_conv1d(xi, p["conv_w"], p["conv_b"],
+                                     state["conv"] if state is not None else None)
+        xi = F.silu(xi)
 
-    dbc = torch.matmul(xi, p["w_xdbc"].to(cd))
-    if cfg.attn_impl == "pallas":
-        # K8 reads B and C whole on every device of a mesh: the partial sums
-        # of the Din-split product are reduced once, before its region
-        dbc = _tokens_whole(dbc)
-    dt_in, Bm, Cm = torch.split(dbc, [dt_rank, n, n], dim=-1)
+        dbc = torch.matmul(xi, p["w_xdbc"].to(cd))
+        if cfg.attn_impl == "pallas":
+            # K8 reads B and C whole on every device of a mesh: the partial sums
+            # of the Din-split product are reduced once, before its region
+            dbc = _tokens_whole(dbc)
+        dt_in, Bm, Cm = torch.split(dbc, [dt_rank, n, n], dim=-1)
 
-    A = -torch.exp(p["A_log"].float())                          # (Din, N)
-    h0 = state["ssm"] if state is not None else None
-    if cfg.attn_impl == "pallas":
-        dt_raw = torch.matmul(dt_in.float(), p["w_dt"].float()) + p["dt_bias"].float()
-        if is_dtensor(xi):
-            y = _scan_sharded(xi, dt_raw, Bm, Cm, A, h0)
+        A = -torch.exp(p["A_log"].float())                          # (Din, N)
+        h0 = state["ssm"] if state is not None else None
+        if cfg.attn_impl == "pallas":
+            dt_raw = torch.matmul(dt_in.float(), p["w_dt"].float()) + p["dt_bias"].float()
+            with tracing.span("scan"):
+                if is_dtensor(xi):
+                    y = _scan_sharded(xi, dt_raw, Bm, Cm, A, h0)
+                else:
+                    y, _ = kops.selective_scan(xi, dt_raw, Bm, Cm, A, h0,
+                                               y_dtype=torch.float32, out_state=h0)
         else:
-            y, _ = kops.selective_scan(xi, dt_raw, Bm, Cm, A, h0,
-                                       y_dtype=torch.float32, out_state=h0)
-    else:
-        if h0 is None:
-            h0 = x.new_zeros((x.shape[0], xi.shape[-1], n), dtype=torch.float32)
-        y, hT = _ssm_scan(xi, dt_in, Bm, Cm, p["w_dt"], p["dt_bias"], A, h0,
-                          chunk=scan_chunk)
+            if h0 is None:
+                h0 = x.new_zeros((x.shape[0], xi.shape[-1], n), dtype=torch.float32)
+            with tracing.span("scan"):
+                y, hT = _ssm_scan(xi, dt_in, Bm, Cm, p["w_dt"], p["dt_bias"], A, h0,
+                                  chunk=scan_chunk)
+            if state is not None:
+                state["ssm"].copy_(hT)
         if state is not None:
-            state["ssm"].copy_(hT)
-    if state is not None:
-        state["conv"].copy_(new_conv)
-    y = y + p["D"].float() * xi.float()
-    y = y.to(cd) * F.silu(z)
-    return torch.matmul(y, p["w_out"].to(cd))
+            state["conv"].copy_(new_conv)
+        y = y + p["D"].float() * xi.float()
+        y = y.to(cd) * F.silu(z)
+        return torch.matmul(y, p["w_out"].to(cd))
 
 
 # --------------------------------------------------------------------------- #

@@ -81,6 +81,7 @@ from typing import Dict, Mapping, Tuple
 import torch
 from torch import nn
 
+from repro_torch import tracing
 from repro_torch.core.kernels_xp import resolve_device
 from repro_torch.distributed.ctx import constrain
 from repro_torch.distributed.place import is_dtensor
@@ -451,16 +452,19 @@ def _ssm_stack(model: Model, cfg: ModelConfig, x: torch.Tensor, cache=None):
     states = ([_at(cache, i) for i in range(len(model.layers))]
               if cache is not None else [None] * len(model.layers))
     if cfg.attn_impl != "pallas" or cfg.norm != "rmsnorm":
-        for bp, st in zip(model.layers, states):
-            x = _ssm_block_apply(bp, cfg, x, state=st)
-        return L.norm_apply(model.final_norm, cfg, x)
+        for i, (bp, st) in enumerate(zip(model.layers, states)):
+            with tracing.span("block", index=i):
+                x = _ssm_block_apply(bp, cfg, x, state=st)
+        with tracing.span("final_norm"):
+            return L.norm_apply(model.final_norm, cfg, x)
     eps = cfg.norm_eps
     norms = [bp.ln["scale"] for bp in model.layers[1:]] + [model.final_norm["scale"]]
     normed, = _kernel_norm(x, model.layers[0].ln["scale"], eps)
-    for bp, st, scale in zip(model.layers, states, norms):
-        h = L.mamba_apply(bp.mamba, cfg, normed, state=st,
-                          scan_chunk=cfg.ssm.scan_chunk)
-        normed, x = _kernel_norm(x, scale, eps, h)
+    for i, (bp, st, scale) in enumerate(zip(model.layers, states, norms)):
+        with tracing.span("block", index=i):
+            h = L.mamba_apply(bp.mamba, cfg, normed, state=st,
+                              scan_chunk=cfg.ssm.scan_chunk)
+            normed, x = _kernel_norm(x, scale, eps, h)
     return normed
 
 
@@ -615,7 +619,8 @@ def forward(model: Model, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
     the cache holds, as the JAX package's do."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = constrain(L.embed_apply(model.embed, cfg, tokens), "acts")
+    with tracing.span("embed"):
+        x = constrain(L.embed_apply(model.embed, cfg, tokens), "acts")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == Family.SSM:
         x = _ssm_stack(model, cfg, x, cache)
@@ -641,13 +646,15 @@ def forward(model: Model, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
             S_cache = cache["self"]["k"].shape[2]
             k_pos = torch.arange(S_cache, device=x.device).expand(B, S_cache)
             for i, bp in enumerate(model.dec_layers):
-                x = _xattn_block_apply(bp, cfg, x, mask=mask, q_pos=positions,
-                                       k_pos=k_pos, cache=_at(cache, i), index=0)
+                with tracing.span("block", index=i):
+                    x = _xattn_block_apply(bp, cfg, x, mask=mask, q_pos=positions,
+                                           k_pos=k_pos, cache=_at(cache, i), index=0)
         else:
             enc = encode(model, cfg, batch["frames"])
-            for bp in model.dec_layers:
-                x = _xattn_block_apply(bp, cfg, x, mask=mask, q_pos=positions,
-                                       k_pos=positions, enc_out=enc)
+            for i, bp in enumerate(model.dec_layers):
+                with tracing.span("block", index=i):
+                    x = _xattn_block_apply(bp, cfg, x, mask=mask, q_pos=positions,
+                                           k_pos=positions, enc_out=enc)
     else:   # dense, VLM, MoE
         mask = L.MaskSpec(causal=True, window=cfg.attn_window, prefix_len=prefix_len)
         k_pos = positions
@@ -655,12 +662,14 @@ def forward(model: Model, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
             S_cache = cache["k"].shape[2]
             k_pos = torch.arange(S_cache, device=x.device).expand(B, S_cache)
         for i, bp in enumerate(model.layers):
-            x, layer_aux = _dense_block_apply(
-                bp, cfg, x, rope=rope, mask=mask, q_pos=positions, k_pos=k_pos,
-                cache=_at(cache, i) if cache is not None else None, index=0)
-            if layer_aux is not None:
-                aux = aux + layer_aux
-    x = L.norm_apply(model.final_norm, cfg, x)
+            with tracing.span("block", index=i):
+                x, layer_aux = _dense_block_apply(
+                    bp, cfg, x, rope=rope, mask=mask, q_pos=positions, k_pos=k_pos,
+                    cache=_at(cache, i) if cache is not None else None, index=0)
+                if layer_aux is not None:
+                    aux = aux + layer_aux
+    with tracing.span("final_norm"):
+        x = L.norm_apply(model.final_norm, cfg, x)
     if prefix_len:
         x = x[:, prefix_len:]   # loss only over text positions
     if cache is not None:
@@ -915,7 +924,6 @@ def decode_step(model: Model, cfg: ModelConfig, cache, tokens: torch.Tensor,
     return cache, logits
 
 
-@_without_autograd
 def prefill(model: Model, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
             cache):
     """Run the full prompt, fill the cache, return (cache, last-token logits).
@@ -924,7 +932,17 @@ def prefill(model: Model, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
     The audio family first encodes ``batch["frames"]`` and puts each decoder
     layer's cross k/v (no bias, as the JAX package computes them) into
     ``cache["cross"]``.
+
+    The whole call is a ``prefill`` span of ``repro_torch.tracing``
+    (attributes B and S), with the counters' deltas across it.
     """
+    B, S = batch["tokens"].shape
+    with tracing.span("prefill", counts=True, B=B, S=S):
+        return _prefill(model, cfg, batch, cache)
+
+
+@_without_autograd
+def _prefill(model: Model, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], cache):
     if cfg.family == Family.AUDIO:
         cd = L.dtype_of(cfg.compute_dtype)
         enc = encode(model, cfg, batch["frames"]).to(cd)
@@ -932,5 +950,6 @@ def prefill(model: Model, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
             k=torch.stack([L._matmul(enc, bp.cross["wk"].to(cd)) for bp in model.dec_layers]),
             v=torch.stack([L._matmul(enc, bp.cross["wv"].to(cd)) for bp in model.dec_layers]))
     hidden, _, cache = forward(model, cfg, batch, cache=cache)
-    logits = L.unembed_apply(model.embed, cfg, hidden[:, -1:])
+    with tracing.span("unembed"):
+        logits = L.unembed_apply(model.embed, cfg, hidden[:, -1:])
     return cache, logits

@@ -41,7 +41,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
             "repro_torch.launch.serve_codesign, repro_torch.launch.hillclimb, "
             "repro_torch.distributed.sharding, repro_torch.distributed.ctx, "
             "repro_torch.distributed.place, repro_torch.launch.mesh, "
-            "repro_torch.launch.dryrun, repro_torch.launch.train\n"
+            "repro_torch.launch.dryrun, repro_torch.launch.train, "
+            "repro_torch.tracing\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'benchmarks')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
