@@ -229,7 +229,13 @@ Phases (any failure raises and the exit code is not 0):
      compute: the K5 forward (64 and 40 launches) against the plain
      attention, prefill + decode_step against the forward in f32, the
      forward timed with its ``torch.profiler`` split;
- 24. the kernels line, the card, and the result line.
+ 24. the cached prefill's attention on K5 (``attn_apply``'s route over the
+     cache rows just written): one qwen1.5-4b attention layer at published
+     width, bf16, at the benchmark cells' 1 x 32 768 and chat's 32 x 128,
+     16 x 256 and 8 x 512, and at 8 x 512 in a longer two-layer cache,
+     against the plain q-chunked path: one K5 launch on the tensor cores,
+     the caches bit for bit, the output within 0.1 of the row std;
+ 25. the kernels line, the card, and the result line.
 
 It needs one CUDA card, the CUDA toolkit's nvcc and the repository's
 ``src/`` tree; without them it exits with an error and prints no result.
@@ -4277,13 +4283,13 @@ def reset_model_kernel_counts(FA, RN, SS):
 def p22_launches_by_hand(T, cfg, stage):
     """The model kernels' launches in one bf16 forward, prefill or decode
     step under ``attn_impl="pallas"``: K5 (on the tensor cores) in each
-    causal self-attention without a cache -- each dense layer of a forward,
-    the hybrid's local-attention blocks in a forward or prefill -- and K6
-    once, K7 and K8 once a layer, in each SSM call."""
+    causal self-attention but a decode step's -- each dense layer of a
+    forward or prefill, the hybrid's local-attention blocks in a forward or
+    prefill -- and K6 once, K7 and K8 once a layer, in each SSM call."""
     out = dict.fromkeys(MODEL_KERNELS, 0)
     if cfg.family == "ssm":
         out.update(rmsnorm=1, rmsnorm_residual=cfg.n_layers, selective_scan=cfg.n_layers)
-    elif cfg.family == "dense" and stage == "forward":
+    elif cfg.family == "dense" and stage != "decode":
         out["wgmma"] = cfg.n_layers
     elif cfg.family == "hybrid" and stage != "decode":
         out["wgmma"] = T.hybrid_layout(cfg)[0]
@@ -4430,6 +4436,54 @@ P23_MODELS = (("qwen3-32b", 4, (64, 5120, 64, 8, 128, "bfloat16")),
 P23_S = 2048
 
 
+# --------------------------------------------------------------------------- #
+# Phase 24: the cached prefill's attention on K5 at the qwen1.5-4b cells' shapes
+# --------------------------------------------------------------------------- #
+
+#: (B, S, cache rows, layers of the stacked cache): the 32k request and the
+#: chat mix's three shapes with a cache of S rows, as the benchmark's cells
+#: allocate it; then chat's 8 x 512 in the second layer of a two-layer cache
+#: of 2 048 rows, so that k and v are views at an offset base with batch
+#: stride 2 048 x K x hd, as a longer cache gives them in ``forward``
+P24_SHAPES = ((1, 32768, 32768, 1), (32, 128, 128, 1), (16, 256, 256, 1),
+              (8, 512, 512, 1), (8, 512, 2048, 2))
+#: max over rows of max |K5 route - plain path| / the plain row's std
+#: (``perfbench/check.py``'s measure) of one layer's attention output; the
+#: same bound as ``tests/test_torch_kernels.py``'s card test of the route
+P24_BOUND = 0.1
+
+
+def cached_prefill_layer(torch, FA, L, T, cfg, dev, B, S, rows, layers):
+    """One attention layer of ``cfg`` in a cached prefill (``cache_index``
+    0, q_pos 0..S-1, k_pos 0..rows-1, as ``forward`` calls it), under
+    ``attn_impl="pallas"`` and then ``"xla"``, each over a zeroed bf16 cache
+    of ``layers`` x B x ``rows`` positions of which it writes the last
+    layer.  Returns the outputs, the written caches and K5's launches of
+    each call (counted from a reset just before it)."""
+    gen = torch.Generator(dev).manual_seed(B * S + rows)
+    params = L.attn_init(cfg, gen, dev)
+    params.update({n: torch.randn(p.shape, generator=gen, device=dev).to(p.dtype)
+                   for n, p in params.items() if n.startswith("b")})
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev).bfloat16()
+    q_pos = torch.arange(S, device=dev).expand(B, S)
+    k_pos = torch.arange(rows, device=dev).expand(B, rows)
+    rope = T._rope_for(cfg, q_pos)
+    out, caches, launches = {}, {}, {}
+    for impl in ("pallas", "xla"):
+        stacked = {n: torch.zeros((layers, B, rows, cfg.n_kv_heads, cfg.head_dim_),
+                                  dtype=torch.bfloat16, device=dev) for n in ("k", "v")}
+        FA.reset_launch_counts()
+        with torch.inference_mode():
+            out[impl], caches[impl] = L.attn_apply(
+                params, cfg.replace(attn_impl=impl), x, rope=rope,
+                mask=L.MaskSpec(causal=True), q_pos=q_pos, k_pos=k_pos,
+                cache=T._at(stacked, layers - 1), cache_index=0)
+        launches[impl] = {"wgmma": FA.flash_attention.launches_wgmma,
+                          "fma": FA.flash_attention.launches_fma}
+    FA.reset_launch_counts()
+    return out, caches, launches
+
+
 def phase_dense_published(torch, FA, T, C, dev, card):
     """Phase 23: each model alone on the card (the one before freed)."""
     from repro_torch.models import layers as L
@@ -4501,6 +4555,41 @@ def phase_dense_published(torch, FA, T, C, dev, card):
         torch.cuda.reset_peak_memory_stats()
     seconds = time.perf_counter() - t_phase
     log(f"phase 23: {seconds:.1f} s; K5 launches {totals}")
+    return dict(counts=totals, seconds=seconds)
+
+
+def phase_cached_prefill(torch, FA, T, C, dev):
+    """Phase 24: the route ``attn_apply`` gives a cached prefill -- K5 over
+    the cache rows just written -- held to the plain q-chunked path at the
+    shapes the qwen1.5-4b cells run it at, one layer at published width
+    (MHA 20 x 128, QKV bias, rope theta 5e6, bf16)."""
+    from repro_torch.models import layers as L
+
+    cfg = C.get_config("qwen1.5-4b").replace(param_dtype="bfloat16", rope_theta=5e6)
+    totals = {"wgmma": 0, "fma": 0}
+    t_phase = time.perf_counter()
+    for B, S, rows, layers in P24_SHAPES:
+        out, caches, launches = cached_prefill_layer(torch, FA, L, T, cfg, dev,
+                                                     B, S, rows, layers)
+        torch.cuda.synchronize()
+        want = {"pallas": {"wgmma": 1, "fma": 0}, "xla": {"wgmma": 0, "fma": 0}}
+        check(launches == want, f"phase 24: B {B} S {S} cache {rows}: K5 launched "
+              f"{launches}, not {want}")
+        for n in ("k", "v"):
+            check(torch.equal(caches["pallas"][n], caches["xla"][n]),
+                  f"phase 24: B {B} S {S} cache {rows}: the caches' {n} differ")
+        got, plain = out["pallas"].float(), out["xla"].float()
+        err = float(((got - plain).abs().amax(dim=-1) / plain.std(dim=-1)).max())
+        log(f"phase 24: cached prefill B {B} S {S}, cache {layers} x {rows} rows: K5 "
+            f"over the rows just written against the plain path {err:.4f} of the row "
+            f"std (bound {P24_BOUND}); K5 launches {launches['pallas']}")
+        check(err <= P24_BOUND, f"phase 24: B {B} S {S} cache {rows}: K5 differs from "
+              f"the plain path by {err:.4f} of the row std")
+        totals["wgmma"] += launches["pallas"]["wgmma"]
+        del out, caches
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 24: {seconds:.1f} s; K5 launches {totals}")
     return dict(counts=totals, seconds=seconds)
 
 
@@ -4682,7 +4771,10 @@ def _main(torch, core, _build, KC, dev, card, t_script, children) -> int:
     mark("22")
     p23 = phase_dense_published(torch, FA, T, C, dev, card)
     mark(23)
-    for p in (p22, p23):
+    torch.cuda.empty_cache()
+    p24 = phase_cached_prefill(torch, FA, T, C, dev)
+    mark(24)
+    for p in (p22, p23, p24):
         fa_launches["wgmma"] += p["counts"]["wgmma"]
         fa_launches["fma"] += p["counts"]["fma"]
     for name in ("rmsnorm", "rmsnorm_residual", "selective_scan"):

@@ -421,6 +421,18 @@ def attn_apply(
     the cache.  ``kv_x`` switches to cross-attention over its positions;
     with a cache and ``static_cache`` (or ``kv_x``) the cache holds the
     precomputed cross k/v, read as they are (no k-norm, no rope, no write).
+
+    Under ``attn_impl="pallas"`` the flash-attention kernel K5 takes causal
+    self-attention without prefix-LM masking where every live key is one of
+    this call's own: without a cache (as the JAX package gates its Pallas
+    kernel), and in a cached prefill -- ``cache_index`` the int 0, ``S > 1``
+    rows that fit the cache, no logit softcap -- where it reads the cache
+    rows just written (``forward`` passes q_pos 0..S-1 and k_pos
+    0..S_max-1, so every row past S is causally masked on the plain path).
+    K5 does not read q_pos or k_pos: a caller that passes the int
+    ``cache_index`` 0 with other positions (a left-padded batch, say) gets
+    K5's top-left causal mask under ``"pallas"``, and only the plain path
+    honours its positions.
     """
     with tracing.span("attn"):
         cd = dtype_of(cfg.compute_dtype)
@@ -469,23 +481,25 @@ def attn_apply(
             mask = MaskSpec(everything=True)
 
         wo = p["wo"].to(cd).reshape(H * hd, -1)
-        # The flash-attention kernel K5, gated as the JAX package gates its
-        # Pallas kernel: self-attention without a cache or prefix-LM masking,
-        # causal.  Like that kernel it assumes q_pos is the plain 0..S-1 range
-        # (full-sequence forward) and ignores attn_logit_softcap and
-        # attn_q_chunk.  It reads the (B, S, H, hd) projections through
-        # strides and returns its output in the same memory order.  On a mesh
-        # it runs on each device's local tensors (``_attend_sharded``).
-        k5 = (cfg.attn_impl == "pallas" and kv_x is None and cache is None
+        # K5, where the docstring says.  Like the JAX package's Pallas
+        # kernel it assumes q_pos is the plain 0..S-1 range and ignores
+        # attn_logit_softcap and attn_q_chunk, so a cached prefill with a
+        # softcap stays plain.  It reads the (B, S, H, hd) projections and
+        # the cache through strides and returns its output in q's memory
+        # order.  On a mesh it runs on each device's local tensors
+        # (``_attend_sharded``).
+        fresh = cache is None or (
+            self_cached and isinstance(cache_index, int) and cache_index == 0
+            and 1 < S <= T and not cfg.attn_logit_softcap)
+        k5 = (cfg.attn_impl == "pallas" and kv_x is None and fresh
               and not mask.everything and mask.prefix_len == 0 and mask.causal)
         tracing.count("attn.k5" if k5 else "attn.plain")
         if is_dtensor(q):
             ctx = _attend_sharded(q, k, v, q_pos, k_pos, mask, cfg, k5)
         elif k5:
             ctx = kops.flash_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                q.transpose(1, 2), k[:, :S].transpose(1, 2), v[:, :S].transpose(1, 2),
                 causal=True, window=mask.window).transpose(1, 2)
-            return torch.matmul(ctx.reshape(B, S, H * hd), wo), None
         else:
             ctx = _attend(q.reshape(B, S, K, G, hd), k, v, q_pos, k_pos, mask, cfg)
         out = torch.matmul(ctx.reshape(B, S, H * hd), wo)
@@ -514,7 +528,8 @@ def _attend_sharded(q, k, v, q_pos, k_pos, mask: MaskSpec, cfg: ModelConfig,
     gathered over "model" when they do not split with it).  The result is
     (B, S, H, hd), laid out as the region's q.  Positions and the mask are
     the device's rows.  With ``k5`` (``attn_apply``'s gate, one for both
-    paths) the kernel K5 attends the local tensors."""
+    paths) the kernel K5 attends the local tensors, over their first S keys
+    (all of them without a cache; a cached prefill's rows just written)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     mesh = q.device_mesh
@@ -570,7 +585,7 @@ def _attend_sharded(q, k, v, q_pos, k_pos, mask: MaskSpec, cfg: ModelConfig,
     kp = _plain(k_pos)[rows] if k_pos.shape[0] == B else _plain(k_pos)
     if k5:
         ctx = kops.flash_attention(
-            ql.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2),
+            ql.transpose(1, 2), kl[:, :S].transpose(1, 2), vl[:, :S].transpose(1, 2),
             causal=True, window=mask.window).transpose(1, 2)
     else:
         ctx = _attend(ql.reshape(B_loc, S, K_loc, G_loc, hd), kl, vl, qp, kp,

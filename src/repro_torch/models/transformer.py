@@ -59,7 +59,11 @@ where the JAX package routes it to its Pallas kernel: causal
 self-attention without a cache or a prefix -- every layer of a dense or
 MoE forward, the hybrid's local-attention blocks (in prefill too) and
 the audio decoder's self-attention; never the VLM (its prefix), the
-audio encoder (unmasked) or cross-attention.
+audio encoder (unmasked) or cross-attention.  Beyond the JAX package, it
+also routes the dense, MoE and audio-decoder prefill's cached
+self-attention to K5, over the cache rows just written
+(``layers.attn_apply``), unless the config has a logit softcap; a decode
+step stays on the plain path.
 
 For the SSM family ``attn_impl="pallas"`` selects the kernels K6-K8 (the
 config schema must stay the JAX package's, so the existing "xla | pallas"
@@ -645,6 +649,8 @@ def forward(model: Model, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
         if cache is not None:
             S_cache = cache["self"]["k"].shape[2]
             k_pos = torch.arange(S_cache, device=x.device).expand(B, S_cache)
+            # index 0 with q_pos 0..S-1 and k_pos 0..S_cache-1: the contract
+            # under which attn_apply's cached prefill takes K5
             for i, bp in enumerate(model.dec_layers):
                 with tracing.span("block", index=i):
                     x = _xattn_block_apply(bp, cfg, x, mask=mask, q_pos=positions,
@@ -659,6 +665,9 @@ def forward(model: Model, cfg: ModelConfig, batch: Mapping[str, torch.Tensor],
         mask = L.MaskSpec(causal=True, window=cfg.attn_window, prefix_len=prefix_len)
         k_pos = positions
         if cache is not None:
+            # index 0 with q_pos 0..S-1 and k_pos 0..S_cache-1: the contract
+            # under which attn_apply's cached prefill takes K5 (it does not
+            # read the positions)
             S_cache = cache["k"].shape[2]
             k_pos = torch.arange(S_cache, device=x.device).expand(B, S_cache)
         for i, bp in enumerate(model.layers):

@@ -330,6 +330,34 @@ def _flat(cache, prefix=""):
             yield f"{prefix}{k}", v
 
 
+def test_pallas_prefill_matches_the_plain_prefill_and_jax(pair, monkeypatch):
+    """A prefill under ``attn_impl="pallas"``: K5 once in each cached causal
+    self-attention of the MoE stack and the audio decoder (none where a
+    softcap, the VLM's prefix or the hybrid's ring write keeps the route
+    as it was: the hybrid attends x itself, as in a forward); its last-token
+    logits and every cache tensor equal the plain prefill's and the JAX
+    package's."""
+    B, S = 2, 11
+    jb, tb = make_batch(pair.pcfg, B, S, seed=14)
+    jcache, _ = JT.init_cache(pair.jcfg, B, S + 3)
+    jcache, want = JT.prefill(pair.params, pair.jcfg, without_labels(jb), jcache)
+    pcfg = pair.pcfg.replace(attn_impl="pallas")
+    calls = []
+    real = FA.plain_flash_attention
+    monkeypatch.setattr(FA, "plain_flash_attention",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    cache, got = PT.prefill(pair.model, pcfg, without_labels(tb),
+                            PT.init_cache(pcfg, B, S + 3, device="cpu"))
+    assert len(calls) == (0 if pcfg.attn_logit_softcap else k5_per_forward(pcfg))
+    plain_cache, plain = PT.prefill(pair.model, pair.pcfg, without_labels(tb),
+                                    PT.init_cache(pair.pcfg, B, S + 3, device="cpu"))
+    assert max_err(got, plain) < PALLAS_TOL and max_err(got, want) < PALLAS_TOL
+    want_cache, plain_cache = dict(_flat(jcache)), dict(_flat(plain_cache))
+    for key, t in _flat(cache):
+        assert max_err(t, plain_cache[key]) < PALLAS_TOL, key
+        assert max_err(t, want_cache[key]) < PALLAS_TOL, key
+
+
 @pytest.mark.parametrize("name", ("hybrid", "recurrentgemma-9b/smoke", "audio",
                                   "whisper-medium/smoke", "vlm", "paligemma-3b/smoke"))
 def test_prefill_fills_the_cache_as_jax_does(name):

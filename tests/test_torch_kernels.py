@@ -36,6 +36,7 @@ from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as RN
 from repro_torch.kernels import selective_scan as SS
+from repro_torch.models import layers as PL
 from repro_torch.models import transformer as PT
 
 FA_SHAPES = [
@@ -605,6 +606,54 @@ def test_bf16_chatglm_shaped_forward_runs_k5_on_the_tensor_cores_on_card(cuda_de
         return float((a.float() - b.float()).abs().max() / b.float().abs().max())
 
     assert rel(h_k5, h_plain) <= max(2e-2, 1.5 * rel(h_plain, h_f32))
+    FA.reset_launch_counts()
+
+
+#: (B, S) of the qwen1.5-4b cells' prefills: the 32k request and chat's three
+CACHED_PREFILL_SHAPES = [(1, 32768), (32, 128), (16, 256), (8, 512)]
+#: max over rows of max |K5 route - plain path| / the plain row's std
+#: (``perfbench/check.py``'s measure) of one attention layer's output.  It
+#: read 0.0236 at 1 x 32 768 and 0.0303-0.0305 at chat's three shapes on an
+#: H100 80GB HBM3 (700 W); the bound leaves 3.3 x room above the highest
+CACHED_PREFILL_BOUND = 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S", CACHED_PREFILL_SHAPES, ids=lambda n: str(n))
+def test_cached_prefill_on_k5_holds_to_the_plain_chunked_path_on_card(cuda_device, B, S):
+    """One qwen1.5-4b attention layer (MHA 20 x 128, QKV bias, rope, bf16,
+    q-chunks of 1 024) in a cached prefill at the benchmark cells' shapes:
+    under ``attn_impl="pallas"`` K5 on the tensor cores over the bf16 cache
+    rows just written, against ``attn_impl="xla"``'s plain q-chunked path
+    over the same cache.  The caches are written alike, bit for bit."""
+    cfg = PC.get_config("qwen1.5-4b").replace(param_dtype="bfloat16", rope_theta=5e6)
+    gen = torch.Generator(cuda_device).manual_seed(B * S)
+    params = PL.attn_init(cfg, gen, cuda_device)
+    params.update({n: torch.randn(p.shape, generator=gen, device=cuda_device).to(p.dtype)
+                   for n, p in params.items() if n.startswith("b")})
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=cuda_device).bfloat16()
+    pos = torch.arange(S, device=cuda_device).expand(B, S)
+    rope = PT._rope_for(cfg, pos)
+    out, caches = {}, {}
+    for impl in ("pallas", "xla"):
+        cache = {n: torch.zeros((B, S, cfg.n_kv_heads, cfg.head_dim_), dtype=torch.bfloat16,
+                                device=cuda_device) for n in ("k", "v")}
+        FA.reset_launch_counts()
+        with torch.inference_mode():
+            out[impl], caches[impl] = PL.attn_apply(
+                params, cfg.replace(attn_impl=impl), x, rope=rope,
+                mask=PL.MaskSpec(causal=True), q_pos=pos, k_pos=pos, cache=cache,
+                cache_index=0)
+        assert FA.flash_attention.launches_wgmma == (impl == "pallas")
+        assert FA.flash_attention.launches_fma == 0
+    torch.cuda.synchronize()
+    for n in ("k", "v"):
+        assert torch.equal(caches["pallas"][n], caches["xla"][n]), n
+    got, want = out["pallas"].float(), out["xla"].float()
+    err = float(((got - want).abs().amax(dim=-1) / want.std(dim=-1)).max())
+    print(f"cached prefill B {B} S {S}: K5 against the plain path {err:.4f} "
+          f"(bound {CACHED_PREFILL_BOUND})")
+    assert err <= CACHED_PREFILL_BOUND
     FA.reset_launch_counts()
 
 

@@ -96,16 +96,17 @@ def run(tmp_path_factory):
 
 def calls_by_hand(case, stage):
     """The ``kops`` calls of one forward, prefill or decode step of a case's
-    smoke config: K5 in every causal self-attention without a cache or a
-    prefix (each dense or MoE layer's forward, the hybrid's local-attention
-    blocks in a forward or prefill, the audio decoder's self-attention in a
-    forward), K6 once and K7 and K8 once a layer in each SSM call."""
+    smoke config: K5 in every causal self-attention without a prefix but a
+    decode step's (each dense or MoE layer's forward or prefill, the
+    hybrid's local-attention blocks in a forward or prefill, the audio
+    decoder's self-attention in a forward or prefill), K6 once and K7 and
+    K8 once a layer in each SSM call."""
     cfg = C.get_config(case.replace("-one-kv-head", "").replace("-4x1", ""), smoke=True)
     out = dict.fromkeys(KERNEL_OPS, 0)
     family = cfg.family.value
     if family == "ssm":
         out.update(rmsnorm=1, rmsnorm_residual=cfg.n_layers, selective_scan=cfg.n_layers)
-    elif family in ("dense", "moe", "audio") and stage == "forward":
+    elif family in ("dense", "moe", "audio") and stage != "decode":
         out["flash_attention"] = cfg.n_layers
     elif family == "hybrid" and stage != "decode":
         from repro_torch.models import transformer as T

@@ -227,6 +227,36 @@ def test_prefill_decode_matches_jax_and_forward(pair, per_row):
     assert rel_err(last[:, 0], full[:, -2]) < DECODE_RTOL
 
 
+@pytest.mark.parametrize("extra", [0, 3], ids=["cache-fits", "cache-longer"])
+def test_pallas_prefill_runs_k5_over_the_cache_and_matches_plain_and_jax(pair, extra,
+                                                                         monkeypatch):
+    """Under ``attn_impl="pallas"`` a cached prefill runs K5 once a layer over
+    the rows it has just written (a window config's prompt fills its
+    window-long cache); its last-token logits and every cache tensor equal
+    the plain prefill's and the JAX package's prefill's."""
+    B = 2
+    S = pair.pcfg.attn_window or 12
+    jb, tb = tokens(B, S, pair.jcfg.vocab_size, seed=9)
+    jcache, _ = JT.init_cache(pair.jcfg, B, S + extra)
+    jcache, want = JT.prefill(pair.params, pair.jcfg, {"tokens": jb["tokens"]}, jcache)
+    pcfg = pair.pcfg.replace(attn_impl="pallas")
+    calls = []
+    real = FA.plain_flash_attention
+    monkeypatch.setattr(FA, "plain_flash_attention",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    cache, got = PT.prefill(pair.model, pcfg, {"tokens": tb["tokens"]},
+                            PT.init_cache(pcfg, B, S + extra, device="cpu"))
+    assert len(calls) == pcfg.n_layers
+    plain_cache, plain = PT.prefill(pair.model, pair.pcfg, {"tokens": tb["tokens"]},
+                                    PT.init_cache(pair.pcfg, B, S + extra, device="cpu"))
+    assert len(calls) == pcfg.n_layers   # none in the plain prefill
+    assert max_err(got, plain) < PALLAS_TOL and max_err(got, want) < PALLAS_TOL
+    for name in ("k", "v"):
+        assert cache[name].shape == plain_cache[name].shape == jcache[name].shape
+        assert max_err(cache[name], plain_cache[name]) < PALLAS_TOL, name
+        assert max_err(cache[name], jcache[name]) < PALLAS_TOL, name
+
+
 def test_token_by_token_decode_wraps_the_window_ring_buffer():
     """Sliding window 6 over 14 positions: the cache is a 6-slot ring.
 

@@ -118,6 +118,101 @@ def test_a_cacheless_forward_takes_the_k5_route():
     assert after.get("attn.plain", 0) == before.get("attn.plain", 0)
 
 
+#: (arch, config changes, what runs, S) -> the route of each attention call
+#: under ``attn_impl="pallas"``: ``k5`` and ``plain`` calls a run, as
+#: functions of the config.  A cached prefill writing its S > 1 rows from
+#: index 0 takes K5, in place of the JAX package's plain path; a decode
+#: step, a softcap, the VLM's prefix and cross-attention stay plain.
+ROUTES = {
+    "dense-prefill": ("qwen1.5-4b", {}, "prefill", 8,
+                      lambda c: c.n_layers, lambda c: 0),
+    "dense-prefill-xla": ("qwen1.5-4b", {"attn_impl": "xla"}, "prefill", 8,
+                          lambda c: 0, lambda c: c.n_layers),
+    "dense-prefill-cache-longer": ("qwen1.5-4b", {}, "prefill-longer-cache", 8,
+                                   lambda c: c.n_layers, lambda c: 0),
+    "sliding-window-prefill": ("qwen1.5-4b", {"attn_window": 8}, "prefill", 8,
+                               lambda c: c.n_layers, lambda c: 0),
+    "gqa-prefill": ("chatglm3-6b", {}, "prefill", 8, lambda c: c.n_layers, lambda c: 0),
+    "moe-prefill": ("qwen2-moe-a2.7b", {}, "prefill", 8,
+                    lambda c: c.n_layers, lambda c: 0),
+    "audio-prefill": ("whisper-medium", {}, "prefill", 8,   # encoder, cross: plain
+                      lambda c: c.n_layers, lambda c: c.n_encoder_layers + c.n_layers),
+    "one-token-prefill": ("qwen1.5-4b", {}, "prefill", 1, lambda c: 0, lambda c: c.n_layers),
+    "softcap-prefill": ("qwen1.5-4b", {"attn_logit_softcap": 30.0}, "prefill", 8,
+                        lambda c: 0, lambda c: c.n_layers),
+    "moe-softcap-prefill": ("grok-1-314b", {}, "prefill", 8,
+                            lambda c: 0, lambda c: c.n_layers),
+    "vlm-prefill": ("paligemma-3b", {}, "prefill", 8, lambda c: 0, lambda c: c.n_layers),
+    "decode-scalar-index": ("qwen1.5-4b", {}, "decode", 8,
+                            lambda c: 0, lambda c: c.n_layers),
+    "decode-row-index": ("qwen1.5-4b", {}, "decode-rows", 8,
+                         lambda c: 0, lambda c: c.n_layers),
+    "audio-decode": ("whisper-medium", {}, "decode", 8, lambda c: 0, lambda c: 2 * c.n_layers),
+}
+
+
+def _family_batch(cfg, B, S):
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g)}
+    if cfg.family.value == "audio":
+        batch["frames"] = torch.randn((B, cfg.encoder_seq_len, cfg.d_model), generator=g)
+    if cfg.family.value == "vlm":
+        batch["patches"] = torch.randn((B, cfg.n_vision_tokens, cfg.d_model), generator=g)
+    return batch
+
+
+@pytest.mark.parametrize("case", list(ROUTES))
+def test_the_route_of_a_cached_call_under_pallas(case, monkeypatch):
+    """The route counter and K5's calls for each kind of cached call; K5
+    in a cached prefill reads the cache it has just written, in place, over
+    this call's S rows, with the config's window."""
+    from repro_torch.kernels import ops
+
+    arch, changes, what, S, k5, plain = ROUTES[case]
+    cfg = get_config(arch, smoke=True).replace(**dict({"attn_impl": "pallas"}, **changes))
+    model = T.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    B = 2
+    batch = _family_batch(cfg, B, S)
+    cache = T.init_cache(cfg, B, S + (4 if what != "prefill" else 0), device="cpu")
+    calls = []
+    real = ops.flash_attention
+    monkeypatch.setattr(ops, "flash_attention",
+                        lambda q, k, v, **kw: calls.append((k, kw)) or real(q, k, v, **kw))
+    before = tracing.counters()
+    if what.startswith("prefill"):
+        T.prefill(model, cfg, batch, cache)
+    else:
+        index = torch.full((B,), 3) if what == "decode-rows" else 3
+        T.decode_step(model, cfg, cache, batch["tokens"][:, :1], index)
+    after = tracing.counters()
+    counts = {k: after.get(k, 0) - before.get(k, 0) for k in ("attn.k5", "attn.plain")}
+    assert counts == {"attn.k5": k5(cfg), "attn.plain": plain(cfg)}
+    assert len(calls) == k5(cfg)
+    self_cache = cache["self"] if cfg.family.value == "audio" else cache
+    for k, kw in calls:
+        assert kw == {"causal": True, "window": cfg.attn_window}
+        assert k.shape[2] == S
+        assert k.untyped_storage().data_ptr() == self_cache["k"].untyped_storage().data_ptr()
+
+
+@pytest.mark.parametrize("attn_impl", ["pallas", "xla"])
+def test_a_prefill_longer_than_the_windows_cache_still_raises(attn_impl, monkeypatch):
+    """A dense config's cache holds at most ``attn_window`` rows; a longer
+    prompt fails in the cache write, before any attention, as the JAX
+    package's prefill fails (ROADMAP R6), on either route."""
+    from repro_torch.kernels import ops
+
+    cfg = get_config("qwen1.5-4b", smoke=True).replace(attn_impl=attn_impl, attn_window=6)
+    model = T.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cache = T.init_cache(cfg, 2, 9, device="cpu")
+    assert cache["k"].shape[2] == 6
+    monkeypatch.setattr(ops, "flash_attention", lambda *a, **k: pytest.fail("K5 ran"))
+    before = tracing.counters()
+    with pytest.raises(RuntimeError):
+        T.prefill(model, cfg, _family_batch(cfg, 2, 9), cache)
+    assert tracing.counters() == before
+
+
 def test_launch_counts_read_and_reset_every_model_kernel(monkeypatch):
     from repro_torch.kernels import flash_attention as FA, rmsnorm as RN, selective_scan as SS
 
