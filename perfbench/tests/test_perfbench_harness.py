@@ -21,11 +21,11 @@ import torch
 from perfbench import check, spec
 from perfbench.control import control_readings
 from perfbench.run import Program, forbidden_modules, main, run
-from perfbench.tests.smoke_tree import smoke_tree
+from perfbench.tests.smoke_tree import cells, smoke_tree
 from perfbench.traffic import Traffic
 
 ROOT = Path(__file__).resolve().parents[2]
-CELLS = ("qwen1.5-4b.prefill_32k", "falcon-mamba-7b.prefill_8k", "qwen1.5-4b.prefill_chat")
+CELLS = cells()
 SEED = 2 ** 31 + 12345
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -59,8 +59,10 @@ def test_benchmark_json_keeps_the_contract_format():
         assert set(c) == {"name", "source", "file", "reduced", "why"}
         assert json.loads((ROOT / c["file"]).read_text())["reduced"] == c["reduced"]
     for w in bench["workloads"]:
-        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] == 1
+        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] in (1, 4)
         assert len(w["why"]) <= 200
+    four = [w["name"] for w in bench["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(bench["workloads"]) // 4), four
     for m in bench["end_to_end"]:
         assert UNIT.match(m["unit"]) and 0.01 <= m["bound"] <= 0.25
     for m in bench["per_layer"]:
@@ -72,34 +74,95 @@ def test_benchmark_json_keeps_the_contract_format():
             {m["name"] for m in cell.end_to_end}
 
 
-def test_a_config_mix_and_metric_added_as_files_are_found(tmp_path):
-    smoke_tree(tmp_path)
-    pb = tmp_path / "perfbench"
-    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
-    cfg = json.loads((pb / "configs" / "qwen1.5-4b.json").read_text())
-    cfg["name"] = "qwen1.5-4b-copy"
-    (pb / "configs" / "qwen1.5-4b-copy.json").write_text(json.dumps(cfg))
-    mix = json.loads((pb / "traffic" / "prefill_chat.json").read_text())
-    mix["lengths"] = [8]
-    (pb / "traffic" / "prefill_one.json").write_text(json.dumps(mix))
+#: what ``_add_by_files`` adds: a family (a copy of the SSM reference), a
+#: configuration of it, a mix, a cell of the two and a per-layer metric
+NEW_CONFIG, NEW_MIX = "falcon-mamba-7b-copy", "prefill_pair"
+NEW_CELL = f"{NEW_CONFIG}.{NEW_MIX}"
+
+
+def _checkout(dst: Path) -> Path:
+    """A checkout of the benchmark alone: ``BENCHMARK.json`` and
+    ``perfbench/``, its tests' smoke files included."""
+    dst.mkdir()
+    shutil.copy(ROOT / "BENCHMARK.json", dst / "BENCHMARK.json")
+    shutil.copytree(ROOT / "perfbench", dst / "perfbench",
+                    ignore=shutil.ignore_patterns("out", "__pycache__"))
+    return dst
+
+
+def _add_by_files(root: Path, without_smoke: str = "") -> None:
+    """Add to the checkout ``root`` a family, a configuration, a mix, a cell
+    and a metric as new files and appended entries, with the smoke files
+    of the configuration and the mix but the one of ``without_smoke``
+    (``configs`` or ``traffic``)."""
+    pb, smoke = root / "perfbench", root / "perfbench" / "tests" / "smoke"
+    shutil.copy(pb / "reference" / "ssm.py", pb / "reference" / "ssm_copy.py")
+    cfg = json.loads((pb / "configs" / "falcon-mamba-7b.json").read_text())
+    cfg.update(name=NEW_CONFIG, family="ssm_copy")
+    (pb / "configs" / f"{NEW_CONFIG}.json").write_text(json.dumps(cfg))
+    (pb / "traffic" / f"{NEW_MIX}.json").write_text(json.dumps(
+        {"lengths": [256, 512], "batch": 2, "trace_slice": {"skip": 2, "requests": 4}}))
+    if without_smoke != "configs":
+        shutil.copy(smoke / "configs" / "falcon-mamba-7b.json",
+                    smoke / "configs" / f"{NEW_CONFIG}.json")
+    if without_smoke != "traffic":
+        (smoke / "traffic" / f"{NEW_MIX}.json").write_text(json.dumps(
+            {"lengths": [4, 8], "trace_slice": {"skip": 1, "requests": 2}}))
+    shutil.copy(pb / "limits" / "falcon-mamba-7b.prefill_8k.json",
+                pb / "limits" / f"{NEW_CELL}.json")
     (pb / "metrics" / "requests_traced.py").write_text(
         "def read(slc):\n    return float(len(slc.requests))\n")
-    (pb / "limits" / "qwen1.5-4b-copy.prefill_one.json").write_text(
-        (pb / "limits" / "qwen1.5-4b.prefill_chat.json").read_text())
-    bench["configs"].append(dict(bench["configs"][0], name="qwen1.5-4b-copy",
-                                 file="perfbench/configs/qwen1.5-4b-copy.json"))
-    bench["workloads"].append({"name": "qwen1.5-4b-copy.prefill_one",
-                               "config": "qwen1.5-4b-copy", "traffic": "prefill_one",
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    entry = next(c for c in bench["configs"] if c["name"] == "falcon-mamba-7b")
+    bench["configs"].append(dict(entry, name=NEW_CONFIG,
+                                 file=f"perfbench/configs/{NEW_CONFIG}.json"))
+    bench["workloads"].append({"name": NEW_CELL, "config": NEW_CONFIG, "traffic": NEW_MIX,
                                "chips": 1, "why": "a cell added by files alone"})
     bench["per_layer"].append({"name": "requests_traced", "unit": "requests",
                                "better": "higher", "source": "program_counter",
                                "layer": "device", "moves": "prefill_tokens_per_s",
-                               "workloads": ["qwen1.5-4b-copy.prefill_one"]})
-    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    before = {p: p.read_bytes() for p in (ROOT / "perfbench").rglob("*.py")}
-    result = _run(tmp_path, "qwen1.5-4b-copy.prefill_one", trace=True)
+                               "workloads": [NEW_CELL]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+
+def _files(root: Path) -> dict:
+    """Every file under ``root`` but bytecode and run outputs (``out/``)."""
+    return {p: p.read_bytes() for p in root.rglob("*")
+            if p.is_file() and {"__pycache__", "out"}.isdisjoint(p.relative_to(root).parts)}
+
+
+def test_a_config_mix_and_metric_added_as_files_are_found(tmp_path):
+    """A family, a configuration, a mix, a cell and a metric, added as new
+    files and appended entries of ``BENCHMARK.json`` alone, are found,
+    built at smoke size and run ``correct``; no file that was there
+    changes, byte for byte."""
+    root = _checkout(tmp_path / "checkout")
+    before, repo = _files(root), _files(ROOT / "perfbench")
+    _add_by_files(root)
+    (tmp_path / "smoke").mkdir()
+    cell = spec.load_cell(NEW_CELL, smoke_tree(tmp_path / "smoke", root))
+    small = json.loads((root / "perfbench" / "tests" / "smoke" / "configs"
+                        / f"{NEW_CONFIG}.json").read_text())
+    assert cell.config.items() >= small["config"].items()
+    assert Path(cell.reference.__file__).name == "ssm_copy.py"
+    result = run(cell, SEED, 0.2, True, "cpu")
     assert result["correct"] and result["metrics"]["requests_traced"]["value"] == 2.0
-    assert {p: p.read_bytes() for p in (ROOT / "perfbench").rglob("*.py")} == before
+    after = {p: p.read_bytes() for p in before}
+    old, new = (json.loads(d.pop(root / "BENCHMARK.json")) for d in (before, after))
+    assert after == before and set(new) == set(old)
+    for key, value in old.items():
+        assert (new[key][:len(value)] if isinstance(value, list) else new[key]) == value
+    assert _files(ROOT / "perfbench") == repo
+
+
+@pytest.mark.parametrize("kind,name", (("configs", NEW_CONFIG), ("traffic", NEW_MIX)))
+def test_a_config_or_mix_without_smoke_sizes_names_the_file_to_add(tmp_path, kind, name):
+    root = _checkout(tmp_path / "checkout")
+    _add_by_files(root, without_smoke=kind)
+    (tmp_path / "smoke").mkdir()
+    want = re.escape(f"add perfbench/tests/smoke/{kind}/{name}.json")
+    with pytest.raises(FileNotFoundError, match=want):
+        smoke_tree(tmp_path / "smoke", root)
 
 
 def test_an_unknown_cell_is_refused(tree):
@@ -113,23 +176,23 @@ def test_an_unknown_cell_is_refused(tree):
 
 
 def test_k5_bound_at_chatglm3_shape():
-    cell = spec.load_cell(CELLS[0])
+    cell = spec.load_cell("qwen1.5-4b.prefill_32k")
     k5 = next(k for k in cell.kernels if k.GROUP == "K5")
     ms, by = k5.attention_bound(4, 32, 2, 2048, 2048, 128, True, None, "bfloat16")
     assert by == "operations" and round(ms, 3) == 0.139
 
 
 def test_k8_bound_at_falcon_mamba_shape():
-    cell = spec.load_cell(CELLS[1])
+    cell = spec.load_cell("falcon-mamba-7b.prefill_8k")
     k8 = next(k for k in cell.kernels if k.GROUP == "K8")
     ms, by = k8.scan_bound(4, 2048, 8192, 16, 2, 4, 4, True)
     assert by == "operations" and round(ms, 3) == 0.289
 
 
 def test_model_flops_of_the_long_cells():
-    dense = spec.load_cell(CELLS[0])
+    dense = spec.load_cell("qwen1.5-4b.prefill_32k")
     assert dense.reference.model_flops(dense.config, 1, 32768) == pytest.approx(4.28e14, rel=5e-3)
-    ssm = spec.load_cell(CELLS[1])
+    ssm = spec.load_cell("falcon-mamba-7b.prefill_8k")
     assert ssm.reference.model_flops(ssm.config, 1, 8192) == pytest.approx(1.10e14, rel=5e-3)
 
 
@@ -195,6 +258,8 @@ def test_a_run_prints_the_contract_keys(tree, name, trace):
     want += ["breakdown", "checks"] if trace else ["checks"]
     assert list(result) == want
     assert set(result["device"]) >= {"platform", "kind", "count", "memory_peak_bytes"}
+    # a cell that asks for four cards is run, and reported, on four
+    assert result["device"]["count"] == spec.load_cell(name, tree).workload["chips"]
     if trace:
         assert {"busy_s", "window_s"} <= set(result["device"])
     else:
@@ -236,11 +301,16 @@ class _AlteredAnswer(Program):
         return cache, logits
 
 
+def _batched(name):
+    """Whether a request of the cell's mix holds more than one prompt."""
+    return any(B > 1 for B, _ in Traffic(spec.load_cell(name).traffic, 0, 1).shapes())
+
+
 #: the faults each cell can have: one card, so no exchange between chips to
-#: leave out; the B 1 cells have no half of a batch to leave out
+#: leave out; a cell of B 1 requests has no half of a batch to leave out
 FAULTS = [(name, fault) for name in CELLS
           for fault in (_StateUnchanged, _AlteredAnswer)] \
-    + [("qwen1.5-4b.prefill_chat", _HalfBatch)]
+    + [(name, _HalfBatch) for name in CELLS if _batched(name)]
 
 
 @pytest.mark.parametrize("name,fault", FAULTS)
@@ -264,7 +334,7 @@ def test_the_trace_reduction_on_a_synthetic_slice():
 
     from perfbench import peaks, trace as tr
 
-    cell = spec.load_cell(CELLS[1])
+    cell = spec.load_cell("falcon-mamba-7b.prefill_8k")
     cpu, dev = DeviceType.CPU, DeviceType.CUDA
 
     def ev(name, kind, a, b):
@@ -290,7 +360,7 @@ def test_the_trace_reduction_on_a_synthetic_slice():
         "device_idle_share": 30.0, "stack_other_ms": 0.02,
         "k8_roofline": 100 * k8 / 0.030,
         "prefill_mfu": 100 * flops / (100e-6 * peaks.BF16_OPS_PER_S)})
-    assert spec.load_cell(CELLS[2]).readers["host_enqueue_ms"].read(slc) == 2.0
+    assert spec.load_cell("qwen1.5-4b.prefill_chat").readers["host_enqueue_ms"].read(slc) == 2.0
     assert slc.breakdown()["device_ops"][0] == ["K8: void selective_scan_k<4>(...)",
                                                 pytest.approx(30e-6)]
     between = tr.Slice(ops=ops[1:] + [tr.DeviceOp("random_from_to", "other", 95, 96)],
@@ -324,7 +394,8 @@ def test_traffic_is_the_seeds_and_every_seed_sends_the_same_mix():
 def test_the_run_refuses_without_a_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")
-    assert main(["--workload", CELLS[2], "--seed", str(SEED), "--seconds", "1"]) != 0
+    assert main(["--workload", "qwen1.5-4b.prefill_chat", "--seed", str(SEED),
+                 "--seconds", "1"]) != 0
     assert capsys.readouterr().out == ""
 
 
@@ -333,8 +404,9 @@ def test_the_run_refuses_without_the_port(tmp_path):
     shutil.copytree(ROOT / "perfbench", tmp_path / "perfbench",
                     ignore=shutil.ignore_patterns("out", "__pycache__"))
     shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
-    proc = subprocess.run([sys.executable, "perfbench/run.py", "--workload", CELLS[2],
-                           "--seed", "1", "--seconds", "1", "--trace", "0"],
+    proc = subprocess.run([sys.executable, "perfbench/run.py", "--workload",
+                           "qwen1.5-4b.prefill_chat", "--seed", "1", "--seconds", "1",
+                           "--trace", "0"],
                           cwd=tmp_path, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and proc.stdout == ""
 
@@ -357,12 +429,14 @@ def test_a_run_and_the_references_load_nothing_of_jax_or_the_jax_package(tree):
         assert proc.stdout.strip().splitlines()[-1] == "none"
     code = (
         "import sys; sys.path[:0] = [{root!r}]\n"
-        "import importlib\n"
-        "for m in ('dense', 'ssm'): importlib.import_module('perfbench.reference.' + m)\n"
+        "import importlib, pathlib\n"
+        "for p in sorted(pathlib.Path({ref!r}).glob('*.py')):\n"
+        "    importlib.import_module('perfbench.reference.' + p.stem)\n"
         "print(sorted({{n.split('.')[0] for n in sys.modules}} & "
         "{{'jax', 'jaxlib', 'flax', 'repro', 'repro_torch'}}))\n")
-    proc = subprocess.run([sys.executable, "-c", code.format(root=str(ROOT))],
-                          capture_output=True, text=True, timeout=120)
+    proc = subprocess.run([sys.executable, "-c", code.format(
+        root=str(ROOT), ref=str(ROOT / "perfbench" / "reference"))],
+        capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "[]", proc.stderr[-2000:]
 
 

@@ -10,8 +10,9 @@ import pytest
 
 from perfbench import spans, spec, trace as tr
 from perfbench.spans import OUTSIDE, Event, HostSpan, SpanSlice
+from perfbench.tests.smoke_tree import cells, smoke_tree
 
-CELLS = ("qwen1.5-4b.prefill_32k", "falcon-mamba-7b.prefill_8k", "qwen1.5-4b.prefill_chat")
+CELLS = cells()
 US = 1000     # the synthetic slice's unit, 1 us in ns
 
 
@@ -42,7 +43,7 @@ OPS = [Event("distribution_random", 60 * US, 80 * US, 1),
 WINDOW = (40 * US, 1100 * US)
 
 
-def _slice(cell=CELLS[2], spans_=SPANS, ops=OPS, calls=CALLS, window=WINDOW):
+def _slice(cell="qwen1.5-4b.prefill_chat", spans_=SPANS, ops=OPS, calls=CALLS, window=WINDOW):
     c = spec.load_cell(cell)
     return SpanSlice(ops=[], wall_s=(window[1] - window[0]) / 1e9, requests=[(8, 512)],
                      enqueue_ms_outside=[], config=c.config, reference=c.reference,
@@ -89,15 +90,16 @@ def test_each_new_metric_equals_a_count_by_hand():
                    "prefill_host_self_ms": _ms(860), "attn_k5_share": 0.0}
 
 
-def test_the_readers_read_none_without_spans():
+@pytest.mark.parametrize("name", CELLS)
+def test_the_readers_read_none_without_spans(name):
     readers = [spec.load_module(spec.ROOT / "perfbench" / "metrics" / f"{n}.py", n)
                for n in spans.READERS]
-    c = spec.load_cell(CELLS[0])
+    c = spec.load_cell(name)
     plain = tr.Slice(ops=[tr.DeviceOp("k", "other", 0, 5)], wall_s=1e-5, requests=[(1, 8)],
                      enqueue_ms_outside=[], config=c.config, reference=c.reference,
                      kernels=c.kernels)
-    no_spans = _slice(spans_=[])
-    outside_window = _slice(window=(2000 * US, 3000 * US))
+    no_spans = _slice(name, spans_=[])
+    outside_window = _slice(name, window=(2000 * US, 3000 * US))
     for slc in (plain, no_spans, outside_window):
         assert [r.read(slc) for r in readers] == [None] * len(readers)
 
@@ -106,14 +108,14 @@ def test_a_mixer_slice_reads_the_mixer_and_no_attention():
     mixer = [_span(1, None, "prefill", 100, 1000, {"selective_scan": 1}),
              _span(3, 1, "block", 200, 600), _span(4, 3, "mixer", 210, 580),
              _span(5, 4, "scan", 290, 320)]
-    att = spans.attribution(_slice(CELLS[1], spans_=mixer))
+    att = spans.attribution(_slice("falcon-mamba-7b.prefill_8k", spans_=mixer))
     assert att.device_self["mixer"] == 460 * US - 120 * US
     assert att.device_self["scan"] == att.device_inside["scan"] == 120 * US
     assert att.device_inside["mixer"] == 460 * US
     for name, want in (("mixer_device_ms", _ms(460)), ("attn_device_ms", None),
                        ("mlp_device_ms", None), ("attn_k5_share", None)):
         mod = spec.load_module(spec.ROOT / "perfbench" / "metrics" / f"{name}.py", name)
-        assert mod.read(_slice(CELLS[1], spans_=mixer)) == want
+        assert mod.read(_slice("falcon-mamba-7b.prefill_8k", spans_=mixer)) == want
 
 
 def test_the_window_ends_with_the_last_requests_sync():
@@ -141,10 +143,9 @@ def test_the_traced_run_with_the_recorder_on_the_cpu(tmp_path):
     """The tool's run of a cell on the CPU: the recorder is on through
     set-up and the window, off after; the CPU trace has no device
     operations, so nothing is attributed."""
-    from perfbench.tests.smoke_tree import smoke_tree
     from repro_torch import tracing
 
-    cell = spec.load_cell(CELLS[1], smoke_tree(tmp_path))
+    cell = spec.load_cell("falcon-mamba-7b.prefill_8k", smoke_tree(tmp_path))
     result = spans.traced_run(cell, 2 ** 31 + 5, 0.1, True, "cpu")
     assert result["correct"] and tracing.disable() is None
     assert result["spans"]["requests"] == 0
