@@ -463,9 +463,11 @@ def attn_apply(
                 k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
 
         if rope is not None:
-            q = apply_rope(q, *rope, cfg.rope_style)
-            if kv_x is None and not static_cache:
-                k = apply_rope(k, *rope, cfg.rope_style)
+            tracing.count(f"rope.{cfg.rope_style}")
+            with tracing.span("rope"):
+                q = apply_rope(q, *rope, cfg.rope_style)
+                if kv_x is None and not static_cache:
+                    k = apply_rope(k, *rope, cfg.rope_style)
 
         if self_cached:
             assert cache_index is not None

@@ -9,7 +9,8 @@ opened outside every other span starts and every span inside it shares.
 ``models.transformer.prefill`` opens such a root for each call, with
 spans for the embedding, each block, the final norm and the unembedding
 inside it, and the layers' ``attn`` / ``mlp`` / ``moe`` / ``mixer`` /
-``scan`` spans inside those.
+``scan`` spans inside those (``rope``, the rotation of q and k, inside
+``attn``, as ``scan`` is inside ``mixer``).
 
 Recording is off by default and only a caller turns it on: ``enable()``
 starts a fresh ``Recorder``, ``disable()`` stops it and returns it.  While
@@ -17,7 +18,8 @@ it is off, ``span`` returns one shared no-op object: no clock read, no
 record.  Nothing here touches the device: no launch, no synchronisation.
 
 Counters: ``count(name)`` bumps a named count at any time (the model
-stack counts its attention calls by route, ``attn.k5`` or ``attn.plain``);
+stack counts its attention calls by route, ``attn.k5`` or ``attn.plain``,
+and its rotations by style, ``rope.full`` or ``rope.half``);
 ``counters()`` reads them together with the model kernels' launch counts
 (``repro_torch.kernels.launch_counts``).  A span opened with
 ``counts=True`` records, on exit, how far each of them moved inside it.

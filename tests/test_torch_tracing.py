@@ -68,6 +68,7 @@ def _tree(records):
 @pytest.mark.parametrize("arch,attn_impl,inner", [
     ("qwen1.5-4b", None, ["attn", "mlp"]),
     ("qwen1.5-4b", "pallas", ["attn", "mlp"]),
+    ("chatglm3-6b", "pallas", ["attn", "mlp"]),
     ("falcon-mamba-7b", None, ["mixer"]),
     ("falcon-mamba-7b", "pallas", ["mixer"]),
 ])
@@ -87,11 +88,13 @@ def test_a_prefill_is_one_tree_with_a_block_a_layer(arch, attn_impl, inner):
     assert ("final_norm" in [r.name for r in top]) != kernel_norms
     for b in blocks:
         assert sorted(r.name for r in children[b.id]) == sorted(inner)
+    # the rotation of q and k nests in its attention call as the scan in its mixer
+    nested = {"mixer": ["scan"], "attn": ["rope"]}
     for r in rec.records:
-        if r.name == "mixer":
-            assert [c.name for c in children[r.id]] == ["scan"]
+        if r.name in nested:
+            assert [c.name for c in children[r.id]] == nested[r.name]
     assert len(rec.records) == len(top) + 1 + len(blocks) * len(inner) \
-        + sum(r.name == "mixer" for r in rec.records)
+        + sum(r.name in nested for r in rec.records)
 
 
 def test_the_route_counter_counts_one_attention_call_a_layer():
@@ -106,6 +109,19 @@ def test_the_route_counter_counts_one_attention_call_a_layer():
     assert tracing.counters()["attn.plain"] - before.get("attn.plain", 0) == cfg.n_layers
     # the CPU takes the kernels' plain versions: nothing launched
     assert all(root.counts[k] == 0 for k in kernels.launch_counts())
+
+
+@pytest.mark.parametrize("arch,style", [("qwen1.5-4b", "full"), ("chatglm3-6b", "half")])
+def test_the_rope_counter_counts_one_rotation_a_layer_by_style(arch, style):
+    cfg, run = _prefill(arch, "pallas")
+    assert cfg.rope_style == style
+    rec = tracing.enable()
+    run()
+    tracing.disable()
+    root = next(r for r in rec.records if r.parent is None)
+    assert {k: v for k, v in root.counts.items() if k.startswith("rope.") and v} == \
+        {f"rope.{style}": cfg.n_layers}
+    assert sum(r.name == "rope" for r in rec.records) == cfg.n_layers
 
 
 def test_a_cacheless_forward_takes_the_k5_route():
@@ -210,7 +226,8 @@ def test_a_prefill_longer_than_the_windows_cache_still_raises(attn_impl, monkeyp
     before = tracing.counters()
     with pytest.raises(RuntimeError):
         T.prefill(model, cfg, _family_batch(cfg, 2, 9), cache)
-    assert tracing.counters() == before
+    # the first layer's rotation, which comes before the write, and nothing else
+    assert tracing.counters() == dict(before, **{"rope.full": before.get("rope.full", 0) + 1})
 
 
 def test_launch_counts_read_and_reset_every_model_kernel(monkeypatch):
