@@ -343,6 +343,12 @@ RMS_D = (64, 128, 4096)
 SCAN_SOURCE = "src/repro_torch/csrc/selective_scan.cu"
 SCAN_REPLACES = "src/repro/kernels/selective_scan.py:27"
 SCAN_TOL = {"float32": 2e-4, "bfloat16": 2e-2}  # tol_for, tests/test_kernels.py
+CONV_SOURCE = "src/repro_torch/csrc/causal_conv.cu"
+CONV_REPLACES = ("none: the JAX package's Mamba mixer runs its conv, bias and SiLU "
+                 "as XLA operations")
+#: the mixer's fused conv at the falcon-mamba-7b cells' (B, S): prefill_8k's
+#: and prefill_batch's
+CONV_SHAPES = ((1, 8192), (32, 2048))
 #: ... with N not a multiple of the kernel's 4 lanes a channel and Din not
 #: one of its 64 channels a CTA
 SCAN_SHAPES = ((1, 1, 64, 4), (1, 32, 64, 4), (2, 64, 128, 8), (1, 48, 96, 16),
@@ -1880,6 +1886,54 @@ def phase_ssm_kernels(torch, RN, SS, dev):
                             "is the launch's own time from torch.profiler",
                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": None}))
+
+    rows.update(conv_kernel_rows(torch, rand, Din))
+    return rows
+
+
+def conv_kernel_rows(torch, rand, Din, shapes=CONV_SHAPES):
+    """Phase 9's part for the mixer's fused conv, bias and SiLU, at the
+    benchmark cells' (B, S): the strided xi half of a bf16 (B, S, 2 Din)
+    xz, bf16 weights and bias, a zero state; bit for bit against
+    causal_conv1d and F.silu, then timed by CUDA events around back-to-back
+    calls (at this point of a chip_smoke run the profiler has recorded none
+    of its launches; PERF.md §7).  A timing row a shape, and the last shape's also
+    as "causal_conv"."""
+    from repro_torch.kernels import causal_conv as CC
+
+    rows = {}
+    for B, S in shapes:
+        xi = rand(B, S, 2 * Din).bfloat16().chunk(2, dim=-1)[0]
+        w, b = rand(4, Din, scale=0.5).bfloat16(), rand(Din, scale=0.1).bfloat16()
+        before = CC.causal_conv_silu.launches
+        got, got_state = CC.causal_conv_silu(xi, w, b)
+        want, want_state = CC.plain_causal_conv_silu(xi, w, b)
+        check(CC.causal_conv_silu.launches == before + 1, "causal_conv: no launch")
+        n_diff = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+        check(n_diff == 0 and torch.equal(got_state, want_state),
+              f"causal_conv B={B} S={S}: {n_diff} elements differ from the plain "
+              "composition")
+        del got, want, got_state, want_state
+        kern = lambda: CC.causal_conv_silu(xi, w, b)           # noqa: E731
+        ms = cuda_ms(torch, kern)
+        plain_ms = cuda_ms(torch, lambda: CC.plain_causal_conv_silu(xi, w, b),
+                           reps=2, rounds=3)
+        nbytes = 2 * B * S * Din * 2            # xi read once, y written once
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[f"causal_conv_{B}x{S}"] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by="bytes", library_ms=None, max_abs_err=0.0)
+        log(json.dumps({"timing": "causal_conv", "B": B, "S": S, "C": Din,
+                        "inputs": "bf16 xi (the strided half of xz), bf16 w, b; no state",
+                        "bit_equal": True, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                        "bytes": nbytes, "share_of_bound": bound_ms / ms,
+                        "library_ms": None, "library": "none: no PyTorch call fuses it"}))
+        del xi
+    rows["causal_conv"] = rows[f"causal_conv_{shapes[-1][0]}x{shapes[-1][1]}"]
+    torch.cuda.synchronize()
+    log(f"phase 9: the fused conv equals causal_conv1d + F.silu bit for bit at "
+        f"(B, S) {shapes}")
     return rows
 
 
@@ -1889,14 +1943,20 @@ def phase_ssm_kernels(torch, RN, SS, dev):
 
 
 def ssm_counts(RN, SS):
+    """Launches of K6, K7, K8 and the mixer's fused conv."""
+    from repro_torch.kernels import causal_conv as CC
+
     return {"rmsnorm": RN.rmsnorm.launches,
             "rmsnorm_residual": RN.rmsnorm_residual.launches,
-            "selective_scan": SS.selective_scan.launches}
+            "selective_scan": SS.selective_scan.launches,
+            "causal_conv": CC.causal_conv_silu.launches}
 
 
 def reset_ssm_counts(RN, SS):
+    from repro_torch.kernels import causal_conv as CC
+
     RN.rmsnorm.launches = RN.rmsnorm_residual.launches = 0
-    SS.selective_scan.launches = 0
+    SS.selective_scan.launches = CC.causal_conv_silu.launches = 0
 
 
 def phase_ssm_model(torch, RN, SS, T, C, dev):
@@ -1913,7 +1973,8 @@ def phase_ssm_model(torch, RN, SS, T, C, dev):
     batch = _tokens(torch, dev, SSM_B, SSM_S, cfg.vocab_size, seed=1)
     kc = cfg.replace(attn_impl="pallas")
     L_ = cfg.n_layers
-    per_forward = {"rmsnorm": 1, "rmsnorm_residual": L_, "selective_scan": L_}
+    per_forward = {"rmsnorm": 1, "rmsnorm_residual": L_, "selective_scan": L_,
+                   "causal_conv": L_}
 
     reset_ssm_counts(RN, SS)
     t0 = time.perf_counter()
@@ -1930,7 +1991,7 @@ def phase_ssm_model(torch, RN, SS, T, C, dev):
         f"{float(metrics['accuracy']):.5f}; launches {fwd_counts} (forward), "
         f"{loss_counts} (loss_fn)")
     check(fwd_counts == per_forward and loss_counts == per_forward,
-          f"K6/K7/K8 launched {fwd_counts} / {loss_counts}, not {per_forward} "
+          f"K6/K7/K8/conv launched {fwd_counts} / {loss_counts}, not {per_forward} "
           "per forward")
     check(hidden.shape == (SSM_B, SSM_S, cfg.d_model)
           and hidden.dtype == torch.bfloat16, f"hidden {hidden.shape} {hidden.dtype}")
@@ -1945,10 +2006,12 @@ def phase_ssm_model(torch, RN, SS, T, C, dev):
     loss_plain, _ = T.loss_fn(model, cfg, batch)
     ref32, _ = T.forward(model, cfg.replace(compute_dtype="float32"), batch)
     torch.cuda.synchronize()
-    check(sum(ssm_counts(RN, SS).values()) == 0, "the plain blocks launched K6-K8")
+    check(sum(ssm_counts(RN, SS).values()) == 0,
+          "the plain blocks launched K6-K8 or the fused conv")
     k32, _ = T.forward(model, kc.replace(compute_dtype="float32"), batch)
     torch.cuda.synchronize()
-    check(ssm_counts(RN, SS) == per_forward, "the f32 forward missed K6-K8")
+    check(ssm_counts(RN, SS) == per_forward,
+          f"the f32 forward launched {ssm_counts(RN, SS)}, not {per_forward}")
     l_err = abs(float(loss) - float(loss_plain))
 
     h_err, k_f32_err, noise = rel(hidden, h_plain), rel(k32, ref32), rel(h_plain, ref32)
@@ -2021,7 +2084,8 @@ def phase_ssm_serving(torch, RN, SS, T, E, model, cfg, dev):
     reset_ssm_counts(RN, SS)
     T.decode_step(model, kc, cache, tok, SSM_DECODE_AFTER)
     step_counts = ssm_counts(RN, SS)
-    want = {"rmsnorm": 1, "rmsnorm_residual": cfg.n_layers, "selective_scan": cfg.n_layers}
+    want = {"rmsnorm": 1, "rmsnorm_residual": cfg.n_layers, "selective_scan": cfg.n_layers,
+            "causal_conv": cfg.n_layers}
     check(step_counts == want, f"decode step launched {step_counts}, not {want}")
     decode_ms = cuda_ms(
         torch, lambda: T.decode_step(model, kc, cache, tok, SSM_DECODE_AFTER),
@@ -4267,7 +4331,8 @@ def nccl_world(torch):
 P22_MODELS = (("chatglm3-6b", 2), ("falcon-mamba-7b", 2), ("recurrentgemma-9b", 3))
 P22_B, P22_S = 4, 2048
 P22_STAGES = ("forward", "prefill", "decode")
-MODEL_KERNELS = ("wgmma", "fma", "rmsnorm", "rmsnorm_residual", "selective_scan")
+MODEL_KERNELS = ("wgmma", "fma", "rmsnorm", "rmsnorm_residual", "selective_scan",
+                 "causal_conv")
 
 
 def model_kernel_counts(FA, RN, SS):
@@ -4280,15 +4345,18 @@ def reset_model_kernel_counts(FA, RN, SS):
     reset_ssm_counts(RN, SS)
 
 
-def p22_launches_by_hand(T, cfg, stage):
+def p22_launches_by_hand(T, cfg, stage, sharded=False):
     """The model kernels' launches in one bf16 forward, prefill or decode
     step under ``attn_impl="pallas"``: K5 (on the tensor cores) in each
     causal self-attention but a decode step's -- each dense layer of a
     forward or prefill, the hybrid's local-attention blocks in a forward or
-    prefill -- and K6 once, K7 and K8 once a layer, in each SSM call."""
+    prefill -- and K6 once, K7 and K8 once a layer, in each SSM call, with
+    the fused conv once a layer unless ``sharded`` (a DTensor's conv is the
+    plain one)."""
     out = dict.fromkeys(MODEL_KERNELS, 0)
     if cfg.family == "ssm":
-        out.update(rmsnorm=1, rmsnorm_residual=cfg.n_layers, selective_scan=cfg.n_layers)
+        out.update(rmsnorm=1, rmsnorm_residual=cfg.n_layers, selective_scan=cfg.n_layers,
+                   causal_conv=0 if sharded else cfg.n_layers)
     elif cfg.family == "dense" and stage != "decode":
         out["wgmma"] = cfg.n_layers
     elif cfg.family == "hybrid" and stage != "decode":
@@ -4356,6 +4424,8 @@ def phase_mesh_kernels(torch, FA, RN, SS, T, C, dev, card):
         tok = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab_size, (B, 1)),
                               device=dev)
         want = {stage: p22_launches_by_hand(T, cfg, stage) for stage in P22_STAGES}
+        want_split = {stage: p22_launches_by_hand(T, cfg, stage, sharded=True)
+                      for stage in P22_STAGES}
         check(sum(sum(w.values()) for w in want.values()) > 0,
               f"phase 22: {arch} launches no model kernel")
         # the plain path's distance from f32, for the bf16 hold
@@ -4378,8 +4448,8 @@ def phase_mesh_kernels(torch, FA, RN, SS, T, C, dev, card):
         cache = PL.shard_tree(cache, SH.param_specs(_shapes(cache), T.cache_axes(cfg), mesh,
                                                     sc, fsdp=False), mesh)
         split, split_launches = steps(model, cfg, sb, tok_s, cache, sharded=True)
-        check(split_launches == want, f"phase 22: {arch} sharded launches "
-              f"{split_launches}, not {want}")
+        check(split_launches == want_split, f"phase 22: {arch} sharded launches "
+              f"{split_launches}, not {want_split}")
 
         def sharded_forward():
             with rules("forward", True):
@@ -4409,7 +4479,8 @@ def phase_mesh_kernels(torch, FA, RN, SS, T, C, dev, card):
         log(f"phase 22: {arch} at {layers} layers (published width), B {B} S {S}, bf16, "
             f"pallas, on a 1x1 (data, model) mesh under tp: forward, prefill and decode "
             f"step (logits, cache) equal to the unsharded kernel run {held}; launches "
-            f"by stage, sharded {split_launches} (held exactly, as unsharded)")
+            f"by stage, sharded {split_launches} (held exactly, as unsharded but the "
+            f"conv, plain on a DTensor)")
         log(json.dumps({"timing": "mesh_forward", "arch": arch, "layers": layers, "B": B,
                         "S": S, "compute_dtype": "bfloat16", "attn_impl": "pallas",
                         "mesh": "1x1", "unsharded_ms": fwd_ms, "sharded_ms": split_ms,
@@ -4777,7 +4848,7 @@ def _main(torch, core, _build, KC, dev, card, t_script, children) -> int:
     for p in (p22, p23, p24):
         fa_launches["wgmma"] += p["counts"]["wgmma"]
         fa_launches["fma"] += p["counts"]["fma"]
-    for name in ("rmsnorm", "rmsnorm_residual", "selective_scan"):
+    for name in ("rmsnorm", "rmsnorm_residual", "selective_scan", "causal_conv"):
         ssm_launches[name] += p22["counts"][name]
 
     kernels = []
@@ -4801,12 +4872,13 @@ def _main(torch, core, _build, KC, dev, card, t_script, children) -> int:
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"]))
         check(kernels[-1]["launches"] > 0, f"flash_attention_{kernel} never launched")
-    for name in ("rmsnorm", "rmsnorm_residual", "selective_scan"):
+    for name in ("rmsnorm", "rmsnorm_residual", "selective_scan", "causal_conv"):
         row = ssm_rows[name]
+        source, replaces = {"selective_scan": (SCAN_SOURCE, SCAN_REPLACES),
+                            "causal_conv": (CONV_SOURCE, CONV_REPLACES)}.get(
+                                name, (RMS_SOURCE, RMS_REPLACES.get(name)))
         kernels.append(dict(
-            name=name, route="cuda",
-            source=SCAN_SOURCE if name == "selective_scan" else RMS_SOURCE,
-            replaces=SCAN_REPLACES if name == "selective_scan" else RMS_REPLACES[name],
+            name=name, route="cuda", source=source, replaces=replaces,
             launches=ssm_launches[name], max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))

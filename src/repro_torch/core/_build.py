@@ -4,8 +4,9 @@
 kernels K1-K4 in ``congruence.cu``, flash attention K5 in
 ``flash_attention.cu`` (float32 FMA) and ``flash_attention_sm90.cu``
 (bf16 wgmma + TMA), RMSNorm K6 and fused residual RMSNorm K7 in
-``rmsnorm.cu``, the selective scan K8 in ``selective_scan.cu``) into an
-object, all sources at once in parallel,
+``rmsnorm.cu``, the selective scan K8 in ``selective_scan.cu``, the Mamba
+mixer's fused causal conv and SiLU in ``causal_conv.cu``) into an object,
+all sources at once in parallel,
 and links them into one shared library with a plain C interface, loaded
 with ``ctypes``.  The library is keyed by a hash of the sources and the
 flags, under ``build/repro_torch/`` at the root of the checkout, so a fresh
@@ -30,13 +31,14 @@ from repro_torch import tracing
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = (CSRC / "congruence.cu", CSRC / "flash_attention.cu",
            CSRC / "flash_attention_sm90.cu", CSRC / "rmsnorm.cu",
-           CSRC / "selective_scan.cu")
+           CSRC / "selective_scan.cu", CSRC / "causal_conv.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 #: No --use_fast_math: Eq. 1 needs IEEE division and exact comparisons, the
 #: FMA attention kernel uses exp2f and IEEE division, the scan's softplus
-#: expf/log1pf.  (The wgmma attention kernel and the scan write their 2^x as
-#: ex2.approx.ftz themselves.)
+#: expf/log1pf, the conv's SiLU expf and IEEE division, as ATen's.  (The
+#: wgmma attention kernel and the scan write their 2^x as ex2.approx.ftz
+#: themselves.)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -73,6 +75,10 @@ _SIGNATURES = {
     "repro_selective_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                              _I, _I, _I, _I, _I, _P],
+    # x, state, w, bias, y; B, S, C; (batch, time) strides of x and state;
+    # dtypes of x (and state), w, bias; stream
+    "repro_causal_conv_silu": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L,
+                               _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -42,21 +42,23 @@ def refuse_dtensor(kernel: str, *tensors) -> None:
 
 
 def _wrappers():
-    from repro_torch.kernels import flash_attention, rmsnorm, selective_scan
+    from repro_torch.kernels import causal_conv, flash_attention, rmsnorm, selective_scan
 
     return (flash_attention.flash_attention, rmsnorm.rmsnorm,
-            rmsnorm.rmsnorm_residual, selective_scan.selective_scan)
+            rmsnorm.rmsnorm_residual, selective_scan.selective_scan,
+            causal_conv.causal_conv_silu)
 
 
 def launch_counts() -> Dict[str, int]:
     """Launches of K5 (``flash_attention``, and by kernel
     ``flash_attention_wgmma`` / ``flash_attention_fma``), K6 (``rmsnorm``),
-    K7 (``rmsnorm_residual``) and K8 (``selective_scan``) since the last
-    reset."""
-    fa, rn, rr, ss = _wrappers()
+    K7 (``rmsnorm_residual``), K8 (``selective_scan``) and the Mamba mixer's
+    fused conv (``causal_conv``) since the last reset."""
+    fa, rn, rr, ss, cc = _wrappers()
     return {"flash_attention": fa.launches, "flash_attention_wgmma": fa.launches_wgmma,
             "flash_attention_fma": fa.launches_fma, "rmsnorm": rn.launches,
-            "rmsnorm_residual": rr.launches, "selective_scan": ss.launches}
+            "rmsnorm_residual": rr.launches, "selective_scan": ss.launches,
+            "causal_conv": cc.launches}
 
 
 def reset_launch_counts() -> None:

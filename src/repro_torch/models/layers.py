@@ -5,9 +5,10 @@ embedding and unembedding, GQA attention (self or cross; causal,
 sliding-window and prefix-LM masks; q-chunked; KV-cached with a scalar or
 per-row write index, or over a static cross cache; or the flash-attention
 kernel K5), the MLPs, the token-choice top-k MoE (``gmm``, ``dense`` and
-``capacity`` dispatch), the depthwise causal conv, the RG-LRU recurrent
-block and the Mamba-1 mixer (the plain chunked scan, or the selective-scan
-kernel K8).
+``capacity`` dispatch), the RG-LRU recurrent block and the Mamba-1 mixer
+(the plain chunked scan, or the selective-scan kernel K8 after the fused
+conv-and-SiLU kernel); the depthwise causal conv ``causal_conv1d`` lives
+beside that kernel in ``repro_torch.kernels.causal_conv``.
 
 Parameters keep the JAX layout -- ``wq`` is ``(d, H, hd)``, ``wo`` is
 ``(H, hd, d)``, ``w_gate`` is ``(d, f)``, never ``nn.Linear``'s transposed
@@ -29,7 +30,9 @@ import torch.nn.functional as F
 from repro_torch import tracing
 from repro_torch.distributed import ctx as _ctx
 from repro_torch.distributed.place import is_dtensor
+from repro_torch.kernels import causal_conv as kconv
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.causal_conv import causal_conv1d
 from repro_torch.kernels import ref as kref
 from repro_torch.models.config import ModelConfig
 
@@ -920,34 +923,6 @@ def _combine(rows: torch.Tensor, order: torch.Tensor, T: int, k: int) -> torch.T
 
 
 # --------------------------------------------------------------------------- #
-# Depthwise causal conv (the RG-LRU and Mamba-1 blocks')
-# --------------------------------------------------------------------------- #
-
-
-def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
-                  state: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Depthwise causal conv over (B, S, C); w: (width, C).
-
-    Returns (y, new_state), the state being the last ``width - 1`` inputs
-    for decode.  Accumulates in ``x``'s dtype, tap by tap in the JAX
-    package's order, with no convolution library (whose TF32 and summation
-    order would differ)."""
-    width = w.shape[0]
-    if state is None:
-        state = x.new_zeros((x.shape[0], width - 1, x.shape[2]))
-    xp = torch.cat([state.to(x.dtype), x], dim=1)
-    S = x.shape[1]
-    y = torch.zeros_like(x)
-    for i in range(width):
-        y = y + xp[:, i:i + S] * w[i].to(x.dtype)
-    if b is not None:
-        y = y + b.to(x.dtype)
-    new_state = xp[:, -(width - 1):] if width > 1 else state
-    return y, new_state
-
-
-# --------------------------------------------------------------------------- #
 # RG-LRU recurrent block (RecurrentGemma / Griffin)
 # --------------------------------------------------------------------------- #
 
@@ -1166,7 +1141,13 @@ def mamba_apply(p: Mapping, cfg: ModelConfig, x: torch.Tensor, *,
     are written back into it in place.  Under ``cfg.attn_impl == "pallas"``
     the scan is the kernel K8, fed float32 ``dt_raw = dt_in @ w_dt +
     dt_bias`` and asked for float32 ``y`` (on a mesh in a local region,
-    ``_scan_sharded``); otherwise the plain ``_ssm_scan``."""
+    ``_scan_sharded``); otherwise the plain ``_ssm_scan``.  Under
+    ``"pallas"`` the conv, its bias and SiLU on a plain tensor are one
+    kernel (``kops.causal_conv_silu``, the plain result bit for bit) unless
+    autograd records them or the conv's width is not the kernel's 4; a
+    DTensor and the ``"xla"`` path take the plain ``causal_conv1d`` and
+    ``F.silu``.  Each call counts ``conv.fused`` (the
+    kernel ran) or ``conv.plain``."""
     with tracing.span("mixer"):
         s = cfg.ssm
         assert s is not None
@@ -1178,9 +1159,18 @@ def mamba_apply(p: Mapping, cfg: ModelConfig, x: torch.Tensor, *,
         xz = torch.matmul(x, p["w_in"].to(cd))
         xi, z = xz.chunk(2, dim=-1)
 
-        xi, new_conv = causal_conv1d(xi, p["conv_w"], p["conv_b"],
-                                     state["conv"] if state is not None else None)
-        xi = F.silu(xi)
+        conv_state = state["conv"] if state is not None else None
+        with tracing.span("conv"):
+            fused = (cfg.attn_impl == "pallas" and not is_dtensor(xi)
+                     and p["conv_w"].shape[0] == kconv.WIDTH
+                     and not _differentiated(xi, p["conv_w"], p["conv_b"]))
+            if fused:
+                xi, new_conv = kops.causal_conv_silu(xi, p["conv_w"], p["conv_b"],
+                                                     conv_state)
+            else:
+                xi, new_conv = causal_conv1d(xi, p["conv_w"], p["conv_b"], conv_state)
+                xi = F.silu(xi)
+            tracing.count("conv.fused" if fused and xi.is_cuda else "conv.plain")
 
         dbc = torch.matmul(xi, p["w_xdbc"].to(cd))
         if cfg.attn_impl == "pallas":

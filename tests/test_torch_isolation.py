@@ -88,7 +88,8 @@ def test_kernel_build_is_keyed_on_the_source_and_needs_nvcc():
                                                 "flash_attention.cu",
                                                 "flash_attention_sm90.cu",
                                                 "rmsnorm.cu",
-                                                "selective_scan.cu"}
+                                                "selective_scan.cu",
+                                                "causal_conv.cu"}
     assert all(s.exists() for s in _build.SOURCES)
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -88,13 +88,14 @@ def test_a_prefill_is_one_tree_with_a_block_a_layer(arch, attn_impl, inner):
     assert ("final_norm" in [r.name for r in top]) != kernel_norms
     for b in blocks:
         assert sorted(r.name for r in children[b.id]) == sorted(inner)
-    # the rotation of q and k nests in its attention call as the scan in its mixer
-    nested = {"mixer": ["scan"], "attn": ["rope"]}
+    # the rotation of q and k nests in its attention call as the conv and
+    # the scan in their mixer
+    nested = {"mixer": ["conv", "scan"], "attn": ["rope"]}
     for r in rec.records:
         if r.name in nested:
             assert [c.name for c in children[r.id]] == nested[r.name]
     assert len(rec.records) == len(top) + 1 + len(blocks) * len(inner) \
-        + sum(r.name in nested for r in rec.records)
+        + sum(len(nested.get(r.name, ())) for r in rec.records)
 
 
 def test_the_route_counter_counts_one_attention_call_a_layer():
@@ -109,6 +110,21 @@ def test_the_route_counter_counts_one_attention_call_a_layer():
     assert tracing.counters()["attn.plain"] - before.get("attn.plain", 0) == cfg.n_layers
     # the CPU takes the kernels' plain versions: nothing launched
     assert all(root.counts[k] == 0 for k in kernels.launch_counts())
+
+
+@pytest.mark.parametrize("attn_impl", ["xla", "pallas"])
+def test_the_conv_counter_counts_one_plain_conv_a_mixer_on_the_cpu(attn_impl):
+    """On the CPU every mixer's conv is plain, on either route: ``"pallas"``
+    hands it to the fused kernel's wrapper, which takes the plain version
+    there and launches nothing."""
+    cfg, run = _prefill("falcon-mamba-7b", attn_impl)
+    rec = tracing.enable()
+    run()
+    tracing.disable()
+    root = next(r for r in rec.records if r.parent is None)
+    assert root.counts["conv.plain"] == cfg.n_layers
+    assert root.counts.get("conv.fused", 0) == 0 and root.counts["causal_conv"] == 0
+    assert sum(r.name == "conv" for r in rec.records) == cfg.n_layers
 
 
 @pytest.mark.parametrize("arch,style", [("qwen1.5-4b", "full"), ("chatglm3-6b", "half")])
@@ -231,7 +247,8 @@ def test_a_prefill_longer_than_the_windows_cache_still_raises(attn_impl, monkeyp
 
 
 def test_launch_counts_read_and_reset_every_model_kernel(monkeypatch):
-    from repro_torch.kernels import flash_attention as FA, rmsnorm as RN, selective_scan as SS
+    from repro_torch.kernels import causal_conv as CC, flash_attention as FA, rmsnorm as RN
+    from repro_torch.kernels import selective_scan as SS
 
     monkeypatch.setattr(FA.flash_attention, "launches", 3)
     monkeypatch.setattr(FA.flash_attention, "launches_wgmma", 2)
@@ -239,25 +256,31 @@ def test_launch_counts_read_and_reset_every_model_kernel(monkeypatch):
     monkeypatch.setattr(RN.rmsnorm, "launches", 4)
     monkeypatch.setattr(RN.rmsnorm_residual, "launches", 5)
     monkeypatch.setattr(SS.selective_scan, "launches", 6)
+    monkeypatch.setattr(CC.causal_conv_silu, "launches", 7)
     assert kernels.launch_counts() == {
         "flash_attention": 3, "flash_attention_wgmma": 2, "flash_attention_fma": 1,
-        "rmsnorm": 4, "rmsnorm_residual": 5, "selective_scan": 6}
+        "rmsnorm": 4, "rmsnorm_residual": 5, "selective_scan": 6, "causal_conv": 7}
     kernels.reset_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}
-    assert FA.flash_attention.launches == RN.rmsnorm.launches == SS.selective_scan.launches == 0
+    assert FA.flash_attention.launches == RN.rmsnorm.launches == SS.selective_scan.launches \
+        == CC.causal_conv_silu.launches == 0
 
 
 def test_a_counted_span_records_the_launch_deltas(monkeypatch):
-    from repro_torch.kernels import selective_scan as SS
+    from repro_torch.kernels import causal_conv as CC, selective_scan as SS
 
     monkeypatch.setattr(SS.selective_scan, "launches", 10)
+    monkeypatch.setattr(CC.causal_conv_silu, "launches", 3)
     tracing.enable()
     with tracing.span("prefill", counts=True):
         SS.selective_scan.launches += 64
+        CC.causal_conv_silu.launches += 64
         tracing.count("attn.plain")
         tracing.count("attn.plain")
+        tracing.count("conv.fused")
     root, = tracing.records()
     assert root.counts["selective_scan"] == 64 and root.counts["attn.plain"] == 2
+    assert root.counts["causal_conv"] == 64 and root.counts["conv.fused"] == 1
     assert root.counts["rmsnorm"] == 0
 
 

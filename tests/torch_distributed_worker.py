@@ -258,6 +258,8 @@ def _refusals(mesh):
         "rmsnorm_residual": lambda: ops.rmsnorm_residual(x, dt(4, 8, 32), scale),
         "selective_scan": lambda: ops.selective_scan(xi, xi, bc, bc, A,
                                                      dt(2, 16, 4)),
+        "causal_conv_silu": lambda: ops.causal_conv_silu(dt(2, 8, 16), torch.randn(4, 16),
+                                                         None),
     }
     out = {}
     for name, call in calls.items():
